@@ -6,7 +6,7 @@ so the observable surface is the factory grammar itself.  We parse the subset
 the reference exercises (its tests and benchmarks use: ``Flat``,
 ``IDMap,Flat``, ``IDMap,IVF1,Flat``, ``HNSW16``, ``IDMap,HNSW32``,
 ``IDMap,HNSW128,Flat``, ``IVF2048_HNSW128,Flat`` — SURVEY.md §4,§6) into a
-graph of TPU-native index models:
+graph of device-native index models:
 
     desc        := [prefix ","]* [transform ","]* component ["," encoding]
                    ["," suffix]

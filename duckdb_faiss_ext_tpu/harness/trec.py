@@ -19,7 +19,7 @@ from .. import api
 
 
 def write_trec_run(path: str, index_name: str, query_ids, queries,
-                   k: int = 1000, run_name: str = "dfx-tpu",
+                   k: int = 1000, run_name: str = "dfx",
                    params=None, catalog=None, batch: int = 256) -> None:
     query_ids = np.asarray(query_ids)
     queries = np.asarray(queries, dtype=np.float32)

@@ -7,9 +7,9 @@ named create-parameter.  We keep the same names, the same default
 split: FAISS treats INNER_PRODUCT and Jaccard as similarity metrics and
 everything else as distances to minimise.
 
-Each metric also carries which compute unit dominates on TPU: L2 and
-INNER_PRODUCT reduce to MXU matmuls; the remaining seven are elementwise
-(VPU) reductions over (query, corpus, dim) tiles.
+Each metric also carries which kind of work dominates: L2 and
+INNER_PRODUCT reduce to matmuls; the remaining seven are elementwise
+reductions over (query, corpus, dim) tiles.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ class Metric:
     #: True when larger values are better (max top-k); FAISS calls these
     #: "similarity metrics" (INNER_PRODUCT, Jaccard).
     is_similarity: bool
-    #: True when the pairwise scores lower to an MXU matmul.
+    #: True when the pairwise scores lower to a matmul.
     uses_mxu: bool
 
 

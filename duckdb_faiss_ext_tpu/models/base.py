@@ -1,7 +1,7 @@
 """Base index interface and selector resolution.
 
 Mirrors the slice of ``faiss::Index`` the reference uses (train / add /
-add_with_ids / search / serialization — SURVEY.md §2.2) with TPU-friendly
+add_with_ids / search / serialization — SURVEY.md §2.2) with device-friendly
 semantics: immutable jitted device buffers, power-of-two capacity bucketing,
 and selectors resolved to per-row boolean masks fused into the search kernel.
 """

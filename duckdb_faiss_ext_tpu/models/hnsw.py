@@ -5,16 +5,16 @@ The reference builds faiss::IndexHNSW via factory strings (``HNSW16``,
 ``efConstruction`` at create time and ``efSearch`` at search time
 (src/faiss_extension.cpp:133-141, 691-702).
 
-Sequential graph-walking ANN is TPU-hostile (pointer chasing,
+Sequential graph-walking ANN is accelerator-hostile (pointer chasing,
 data-dependent control flow — SURVEY.md §2.2), so this index accepts the
-full HNSW surface but executes TPU-shaped searches — the "lower to
-TPU-friendly" decision of SURVEY.md §7 step 8.  Three regimes:
+full HNSW surface but executes batch-shaped searches — the "lower to
+accelerator-friendly" decision of SURVEY.md §7 step 8.  Three regimes:
 
-* small corpora (< ``ann_threshold`` rows): the fused exact MXU scan
+* small corpora (< ``ann_threshold`` rows): the fused exact matmul scan
   (FlatIndex) — recall 1.0, still faster than any ANN at these sizes;
 * at scale (default): a *batched graph walk* over a CAGRA-style
   fixed-degree neighbour graph (ops/graph.py) — true graph-algorithm
-  parity with HNSW, reshaped for the MXU: static-shape frontier expansion,
+  parity with HNSW, reshaped into matmuls: static-shape frontier expansion,
   wide top-k merges, no pointer chasing.  efSearch maps to the candidate
   pool (CAGRA itopk) exactly like HNSW's candidate heap; the graph degree
   comes from M (HNSW's layer-0 degree 2M, capped at 64).  Graph build is
@@ -38,13 +38,14 @@ import numpy as np
 from .. import errors
 from ..metrics import Metric
 from ..params import EMPTY
+from ..utils.config import memory_budget
 from .base import SearchResult
 from .flat import FlatIndex
 
 
 class HNSWIndex(FlatIndex):
     #: corpus size where the internal IVF partition takes over from the
-    #: exact scan (graph ANN only pays at scale; below this the MXU scan is
+    #: exact scan (graph ANN only pays at scale; below this the matmul scan is
     #: already faster than a graph walk).
     ann_threshold = 200_000
     #: rebuild the partition when rows added since the build exceed this
@@ -126,18 +127,19 @@ class HNSWIndex(FlatIndex):
         return "ivf" if wants_ivf else "graph"
 
     # --- graph (CAGRA-style) acceleration ------------------------------------
-    #: HBM budget for the packed neighbourhood tensor (bf16).  XLA's
-    #: scattered row gather costs ~16 ns/row regardless of bytes on v5e;
-    #: packing makes frontier expansion one contiguous block per node (the
-    #: whole walk was gather-bound without it).  6 GB is the empirically
-    #: safe single-tensor size on the v5e (a 6.4 GB pack hit
-    #: RESOURCE_EXHAUSTED; the 10M IVF layout runs at 6.4 GB total).
-    pack_budget_bytes = 6 << 30
+    #: share of device memory one packed neighbourhood tensor (bf16) may
+    #: take.  Packing makes frontier expansion one contiguous block per
+    #: node instead of one scattered row gather per neighbour.
+    PACK_MEMORY_FRACTION = 3 / 8
 
-    #: single allocations cap near 6 GB on v5e; a row-split pack can use
-    #: this many parts (the walk gathers from each part and lane-selects,
-    #: so descriptors scale with parts — 2 keeps that overhead at one
-    #: extra gather while doubling the degree the budget affords).
+    @property
+    def pack_budget_bytes(self) -> int:
+        return memory_budget(self.PACK_MEMORY_FRACTION)
+
+    #: a row-split pack can use this many parts (the walk gathers from
+    #: each part and lane-selects, so gathers scale with parts — 2 keeps
+    #: that overhead at one extra gather while doubling the degree the
+    #: budget affords).
     pack_max_parts = 2
 
     def _graph_degree(self) -> int:
@@ -319,7 +321,7 @@ class HNSWIndex(FlatIndex):
 
         Default width: at one-pool-turnover iterations, wider frontiers
         measure equal-or-better recall with proportionally fewer sequential
-        rounds (each round costs a fixed gather latency on-chip) — but the
+        rounds (each round costs a fixed gather latency) — but the
         per-iteration dedup mask is O((width·deg)²), so width scales down
         with the graph degree."""
         from ..utils.config import next_pow2
@@ -757,7 +759,7 @@ class _ShiftedSelector:
 class NSGIndex(HNSWIndex):
     """faiss::IndexNSG surface (``NSG[R]`` factory strings, e.g. ``NSG32`` /
     ``NSG64,SQ8``).  NSG is a monotonic-graph ANN — pointer-chasing like
-    HNSW and equally TPU-hostile — so it lowers to the same exact-scan /
+    HNSW and equally device-hostile — so it lowers to the same exact-scan /
     internal-IVF-partition execution as HNSWIndex (documented deviation,
     SURVEY.md §7 step 8).  Knob mapping: the graph degree R plays M's role
     at build time; the search pool ``search_L`` (faiss IndexNSG default 16)

@@ -12,6 +12,7 @@ from .. import errors
 from ..metrics import Metric
 from ..ops.flat_search import SIMILARITY_METRICS
 from ..ops.kmeans import kmeans_fit
+from ..utils.config import memory_budget
 from .base import Index
 from .ivf import IVFIndex
 
@@ -24,15 +25,20 @@ class IMIIndex(IVFIndex):
     The coarse space is the cross product of two codebooks of K = 2^nbits
     centroids fitted independently on the two halves of the vector, giving
     nlist = K^2 cells while training only needs n >= K points (the IMI
-    advantage: 65536 cells from 256-way k-means).  TPU design: the (K^2, d)
+    advantage: 65536 cells from 256-way k-means).  Device design: the (K^2, d)
     cell-center table is materialized once at train time so every shared
     scan/layout/sharding path works unchanged (a 64-query probe against
-    65536 cells is one small MXU tile); assignment stays factored per half
+    65536 cells is one small matmul tile); assignment stays factored per half
     — exact for L2/INNER_PRODUCT because both metrics decompose over
     disjoint coordinate blocks."""
 
-    #: materialized cell-center table cap (bytes): 4^nbits * d * 4.
-    MAX_TABLE_BYTES = 1 << 30
+    #: share of device memory the materialized cell-center table
+    #: (4^nbits * d * 4 bytes) may take.
+    TABLE_MEMORY_FRACTION = 1 / 16
+
+    @property
+    def max_table_bytes(self) -> int:
+        return memory_budget(self.TABLE_MEMORY_FRACTION)
     #: the mirror quantizer is never consulted for IMI (assignment is
     #: factored, probing uses the cell table directly); copying the table
     #: into it would double host memory.
@@ -49,11 +55,11 @@ class IMIIndex(IVFIndex):
                 f"The dimension of the vector ({d}) must be even for an "
                 f"IMI2x coarse quantizer")
         table_bytes = (1 << (2 * nbits)) * d * 4
-        if table_bytes > self.MAX_TABLE_BYTES:
+        if table_bytes > self.max_table_bytes:
             raise errors.InvalidInputError(
                 f"IMI2x{nbits} at dimension {d} needs a "
                 f"{table_bytes >> 20} MiB cell table (cap "
-                f"{self.MAX_TABLE_BYTES >> 20} MiB); use fewer bits")
+                f"{self.max_table_bytes >> 20} MiB); use fewer bits")
         super().__init__(d, metric, metric_arg, nlist=1 << (2 * nbits),
                          quantizer=quantizer, encoding=encoding)
         if metric.name not in ("L2", "INNER_PRODUCT"):

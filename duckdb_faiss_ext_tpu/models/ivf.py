@@ -1,4 +1,4 @@
-"""IVF index: k-means-trained inverted lists with a gathered TPU scan.
+"""IVF index: k-means-trained inverted lists with gathered device scans.
 
 Equivalent of faiss::IndexIVF(+Flat storage) as the reference exercises it:
 ``IVFn[,Flat]`` and ``IVFn_HNSWm,Flat`` factory strings, deferred training
@@ -115,7 +115,7 @@ class IVFIndex(Index):
         self._version = 0
         self._dr = None          # device-resident state (models/ivf_device)
         self._device = None      # (xb_sorted, lmax, centroids, order)
-        self._device_pallas = None   # (xb_lists, counts, row_pos)
+        self._device_padded = None   # device-resident serving tuple
         self._ids_sorted = None      # (order, ids[order]) — see _sorted_ids
         self._mask_cache: dict = {}
 
@@ -435,7 +435,7 @@ class IVFIndex(Index):
     def _invalidate(self):
         self._version += 1
         self._device = None
-        self._device_pallas = None
+        self._device_padded = None
         self._device_spill = None
         self._ids_sorted = None
         self._srcrow_sorted = None

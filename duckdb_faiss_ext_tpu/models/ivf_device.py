@@ -1,32 +1,31 @@
-"""Device-resident IVF ingest: build the padded list layout directly in HBM.
+"""Device-resident IVF ingest: build the padded list layout in device memory.
 
-TPU-native capability beyond the reference: the reference's ingest always
-streams vectors through host memory (the faiss_add table function,
-src/faiss_extension.cpp:475-547).  On a TPU the interesting producers —
-embedding models — run on the same chip, so this path lets an IVF index
-ingest vectors that already live in HBM (or are generated there) without a
-single host round-trip of the corpus: coarse assignment, SQ encoding, and
-the scatter into the padded ``(nlist, lmax, w)`` Pallas list layout all run
-on device.  Only O(n) int32/int64 bookkeeping (assignments, ids, slots)
-ever touches the host.
+A capability beyond the reference: the reference's ingest always streams
+vectors through host memory (the faiss_add table function,
+src/faiss_extension.cpp:475-547).  The interesting producers of vectors —
+embedding models — run on the same accelerator, so this path lets an IVF
+index ingest vectors that already live in device memory (or are generated
+there) without a host round-trip of the corpus: coarse assignment, SQ
+encoding, and the scatter into the padded ``(nlist, lmax, w)`` list
+layout all run on the device.  Only O(n) int32/int64 bookkeeping
+(assignments, ids, slots) ever touches the host.
 
-This is also what makes the reference's own benchmark corpus servable from
-one chip: MS MARCO ada2 (8,841,823 × 1536, /root/reference/go/benches_c.go:31)
-is 54 GB fp32 — the host path would move it to the device twice (assign +
-encode); here the fp32 rows never leave the chip and only the compressed
-payload (6.8 GB SQ4 / 13.6 GB SQ8) is ever materialized.
+This is also what makes the reference's own benchmark corpus servable
+from one device: MS MARCO ada2 (8,841,823 × 1536,
+go/benches_c.go:31 in the reference) is 54 GB fp32 — the host path would
+move it to the device twice (assign + encode); here the fp32 rows never
+leave the device and only the compressed payload (6.8 GB SQ4 / 13.6 GB
+SQ8) is ever materialized.
 
-Search rides the UNMODIFIED fused int8 Pallas list-scan
-(ops/pallas_ivf.py::pallas_ivf_sq_search) / Flat list-scan: the layout
-built here has the same shape and semantics as the host-built one
-(models/ivf.py::_build_list_layout), including the spill region for rows
-overflowing the capped lmax.  Because lmax is fixed up front (the payload
-is pre-allocated), rows of an overfull list overflow into the spill buffer
-instead of forcing a re-layout; callers size lmax from expected_total (or
-an exact count pre-pass, see tools/marco_device.py).
+Search runs the padded-layout scan of ops/ivf_padded.py, then the spill
+scan of ops/ivf_scan.py for rows that overflowed their list.  Because
+lmax is fixed up front (the payload is pre-allocated), rows of an
+overfull list overflow into the spill buffer instead of forcing a
+re-layout; callers size lmax from expected_total (or an exact count
+pre-pass).
 
 Unsupported in device-resident mode (clear errors, host path covers them):
-PQ/RQ storage, SQ6/float SQ codecs, SOAR, device sharding (faiss_to_device),
+PQ/RQ storage, float SQ codecs, SOAR, device sharding (faiss_to_device),
 range search, metrics beyond L2/INNER_PRODUCT, and mixing with host adds.
 """
 
@@ -41,7 +40,7 @@ import jax.numpy as jnp
 
 from .. import errors
 from ..ops.kmeans import kmeans_fit, subsample_for_training
-from ..ops.pallas_ivf import choose_lmax
+from ..ops.ivf_padded import choose_lmax
 from ..ops.sq import SQ_LEVELS, sq_train, sq_unpack_host
 from .ivf import IVFIndex
 
@@ -59,9 +58,8 @@ class DeviceResidentState:
         self.lmax = int(lmax)
         if planes:
             # Plane-major payload (SQ6): byte b of every 3-byte group in
-            # rows [b*lmax, (b+1)*lmax) — the serving kernels' expected
-            # (nlist, 3*lmax, d4) folded layout
-            # (models/ivf_layout.py::_build_device_pallas sq6 branch).
+            # rows [b*lmax, (b+1)*lmax) — (nlist, 3*lmax, d4), read back
+            # into packed rows by ops/ivf_padded.py::gather_lists.
             self.payload = jnp.zeros((nlist, planes * lmax,
                                       width // planes), dtype)
         else:
@@ -92,9 +90,8 @@ def _encode_chunk(x, vmin, scale, *, codec: str, levels: int):
     planes]), on device (same quantization/packing as ops/sq.py).
 
     SQ6 additionally returns the (m, 3, d4) plane-major view for the
-    padded-layout scatter (built from the byte planes directly — a
-    transpose of the (m, d4, 3) packed view would materialize a
-    minor-dim-3 u8 intermediate that TPU tiling pads 42x)."""
+    padded-layout scatter (built from the byte planes directly, with no
+    minor-dim-3 intermediate)."""
     q = jnp.clip(jnp.round((x - vmin[None, :]) / scale[None, :]),
                  0, levels).astype(jnp.uint8)
     qf = q.astype(jnp.float32)
@@ -204,10 +201,8 @@ def _scatter_sq6(payload, rn_layout, rs_layout, lists_idx, slots_idx,
 
     Written as ONE flat-row scatter on the (nlist*3*lmax, d4) reshape
     (a bitcast): the mixed advanced/basic form
-    ``payload.at[li, :, si, :]`` made XLA materialise a TRANSPOSED
-    copy of the whole payload around the scatter despite donation —
-    a second 11.25 GiB allocation that OOMed the 8.8M marco SQ6 ingest
-    (r3 marco_sq6: copy.1 u8[10485760,3,384])."""
+    ``payload.at[li, :, si, :]`` can make XLA materialise a transposed
+    copy of the whole payload around the scatter despite donation."""
     nlist, l3, d4 = payload.shape
     lmax = l3 // 3
     flat = payload.reshape(nlist * l3, d4)
@@ -357,8 +352,8 @@ def ivf_add_device(self, x, ids=None, *, expected_total: int | None = None,
             lmax = choose_lmax(
                 max(128, int(2 * expected_total / max(self.nlist, 1))))
         else:
-            # The SQ kernel's unpack tiling requires the pow2/512-multiple
-            # contract choose_lmax guarantees; round an explicit lmax up.
+            # Keep the pow2/512-multiple list lengths choose_lmax gives
+            # (few distinct scan shapes); round an explicit lmax up.
             lmax = choose_lmax(int(lmax))
         width = (self._codes.shape[1] if codec is not None else self.d)
         dtype = jnp.uint8 if codec is not None else jnp.float32
@@ -366,8 +361,7 @@ def ivf_add_device(self, x, ids=None, *, expected_total: int | None = None,
                                        with_rn=codec is not None,
                                        planes=3 if codec == "sq6" else 0)
         if spill_capacity:
-            # 2048-granular (Pallas spill chunk divisibility, see the
-            # serve-time trim below)
+            # 2048-granular, like the serve-time trim below
             self._dr.spill_payload = jnp.zeros(
                 (max(4096, -(-int(spill_capacity) // 2048) * 2048),
                  width), dtype)
@@ -375,7 +369,7 @@ def ivf_add_device(self, x, ids=None, *, expected_total: int | None = None,
     # Drop cached device tuples BEFORE the donating scatter below: a live
     # reference to the payload (e.g. from a search between adds) would
     # force XLA to copy the multi-GB buffer instead of donating it.
-    self._device_pallas = None
+    self._device_padded = None
     self._device_spill = None
 
     # 1. coarse assignment on device; only the int32 vector(s) are fetched.
@@ -498,9 +492,13 @@ def ivf_add_device(self, x, ids=None, *, expected_total: int | None = None,
     self._invalidate()
 
 
-def dr_build_device_pallas(self):
-    """_build_device_pallas for device-resident mode: the big arrays
-    already live in HBM; only counts (KBs) and row_pos (MBs) upload."""
+def dr_device_layout(self):
+    """Serving tuple of the device-resident layout: (payload, counts,
+    row_pos, centroids[, row_norm, row_sum, vmin, scale]).  The big arrays
+    already live on the device; only counts (KBs) and row_pos (MBs)
+    upload.  Also refreshes ``_device_spill``."""
+    if self._device_padded is not None:
+        return self._device_padded
     dr = self._dr
     kept = np.minimum(dr.counts, dr.lmax).astype(np.int32)
     dev = (dr.payload, jnp.asarray(kept), jnp.asarray(dr.row_pos),
@@ -508,30 +506,22 @@ def dr_build_device_pallas(self):
     if self.sq_type is not None:
         vmin, scale = self._sq_ranges()
         dev += (dr.rn_layout, dr.rs_layout, vmin, scale)
-    self._device_pallas = dev
+    self._device_padded = dev
     if dr.spill_n:
         scap = dr.spill_payload.shape[0]
         # Trim over-planned capacity at serve time: the layout plans the
         # spill from expected list overflow, but capped assignment
-        # (assign_topk) redirects about half of it into free slots —
-        # at marco the planned 1.05M-row buffer held 525k rows, 0.8 GB
-        # of dead capacity next to a 12 GiB payload, and the filtered
-        # bench ran out of HBM headroom.  Keep 12.5% slack for future
-        # appends (growth re-doubles if it runs out).
-        # 2048-granular so the Pallas spill scan's chunk C=2048 always
-        # divides the capacity: a 512-granular cap drove C to 512 and
-        # the (C/128, qb) out block under Mosaic's 8-sublane floor
-        # (filtered 8.8M lowering failure, 2026-08-20).
+        # (assign_topk) redirects part of it into free slots, leaving
+        # dead capacity next to the payload.  Keep 12.5% slack for
+        # future appends (growth re-doubles if it runs out); 2048-row
+        # granularity keeps the spill scan's chunks large.
         need_cap = max(4096, -(-int(dr.spill_n * 9 // 8) // 2048) * 2048)
         row_b = dr.spill_payload.dtype.itemsize * dr.spill_payload.shape[1]
         if need_cap < scap and (scap - need_cap) * row_b > (256 << 20):
             # XLA cannot alias a shrinking slice, so old (scap rows) and
-            # new (need_cap rows) buffers coexist during the copy — a
-            # transient +need_cap*row_b at the HBM-tightest moment
-            # (~1.8 GB combined at marco next to the 12 GiB payload;
-            # acceptable, ADVICE r4).  Free the old buffer as soon as
-            # the copy lands so the overlap is bounded by the slice
-            # itself, not by GC.
+            # new (need_cap rows) buffers coexist during the copy.  Free
+            # the old buffer as soon as the copy lands so the overlap is
+            # bounded by the slice itself, not by GC.
             old = dr.spill_payload
             dr.spill_payload = _shrink_rows(old, need_cap)
             jax.block_until_ready(dr.spill_payload)
@@ -553,7 +543,7 @@ def dr_build_device_pallas(self):
         )
     else:
         self._device_spill = None
-    return self._device_pallas
+    return self._device_padded
 
 
 def dr_reconstruct(self, key: int) -> np.ndarray:
@@ -607,6 +597,6 @@ def dr_materialize_codes(self) -> np.ndarray:
 IVFIndex._supports_device_ingest = True
 IVFIndex.train_device = ivf_train_device
 IVFIndex.add_device = ivf_add_device
-IVFIndex._dr_build_device_pallas = dr_build_device_pallas
+IVFIndex._dr_device_layout = dr_device_layout
 IVFIndex._dr_reconstruct = dr_reconstruct
 IVFIndex._dr_materialize_codes = dr_materialize_codes

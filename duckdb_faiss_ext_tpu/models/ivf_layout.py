@@ -1,9 +1,9 @@
 """IVF storage layouts and device builds (split from models/ivf.py).
 
 Everything that turns the host-side (codes/xb, ids, assign) state into the
-device layouts the scans consume: the Pallas padded-list plan (full /
-spill-capped), the sorted+gather layout, selector masks aligned with each
-layout, and the per-version device caches.  Methods attach to IVFIndex;
+device layouts the scans consume: the padded (nlist, lmax, w) list layout
+(device sharding), the sorted+gather layout, selector masks aligned with
+each layout, and the per-version device caches.  Methods attach to IVFIndex;
 models/ivf.py holds the index lifecycle, models/ivf_serve.py the dispatch.
 """
 
@@ -14,9 +14,8 @@ import numpy as np
 import jax.numpy as jnp
 
 from .. import errors
-from ..ops.pallas_ivf import choose_lmax
-from ..utils.config import (config, next_capacity, next_pow2, on_tpu,
-                            pad_rows)
+from ..ops.ivf_padded import choose_lmax
+from ..utils.config import config, next_capacity, next_pow2, pad_rows
 from .ivf import IVFIndex
 
 def _sq_codes_dev(self):
@@ -51,28 +50,6 @@ def _ivf_sq_row_extras(self):
     return state
 
 
-# --- Pallas list-scan layout (padded 3-D lists) ------------------------
-#: HBM budget for the padded (nlist, lmax, d) list layout; beyond this
-#: the pad-to-max waste is not worth the DMA-friendly shape and the
-#: sorted+gather layout is used instead (raw-sized + an int32 table).
-#: Measured at 10M×96/nlist=4096: the full padded layout is 6.4 GB
-#: (pad ratio 1.68× raw) and fits v5e's 16 GB HBM with ample headroom,
-#: taking b48 search from 120 qps (sorted+gather) to the DMA kernel
-#: path.  2 GB (the old budget) silently forced gather at exactly the
-#: scale the kernel matters.
-PALLAS_LAYOUT_BUDGET_BYTES = 7 << 30
-
-#: scalar-prefetch budget for the probe table (SMEM is 1 MB/core; leave
-#: headroom for the grid scalars).
-PALLAS_SMEM_PROBE_INTS = 96 * 1024
-
-#: spill-region cap: beyond this fraction of rows overflowing the capped
-#: layout, the dense spill scan would dominate and the sorted+gather
-#: layout wins instead.  20% of the corpus as one dense MXU tile costs
-#: about a fifth of a flat scan — still far cheaper than the gather
-#: path it replaces.
-SPILL_FRACTION_MAX = 0.2
-
 def _counts(self) -> np.ndarray:
     cache = getattr(self, "_counts_cache", None)
     if cache is not None and cache[0] == self._version:
@@ -82,84 +59,13 @@ def _counts(self) -> np.ndarray:
     self._counts_cache = (self._version, c)
     return c
 
-def _counts_max(self) -> int:
-    return int(self._counts().max()) if self.ntotal else 1
-
-def _pallas_plan(self):
-    """Layout plan for the Pallas list-scan kernel:
-    None           — pallas unusable (metric/mode/memory);
-    ("full", None) — padded (nlist, lmax, w) fits the HBM budget;
-    ("spill", L)   — lists capped at L, overflow rows in a flat spill
-                     region scanned densely and merged (bounds memory at
-                     high skew while keeping the DMA kernel layout)."""
-    from ..utils.config import config
-
-    if self._dr is not None:
-        # Device-resident layout (models/ivf_device.py): the padded
-        # lists already live in HBM with a fixed lmax — the list-scan
-        # kernel (or its interpreter off-TPU) is the only serving path.
-        return ("device", self._dr.lmax)
-    if self.metric.name not in ("L2", "INNER_PRODUCT"):
-        return None
-    if self.sq_type is not None:
-        # SQ8/SQ4/SQ6 have the fused int8 DMA kernel (SQ4 scores its two
-        # nibble planes in-kernel, SQ6 its four 6-bit planes from the
-        # plane-major payload; + SQ-aware spill scan for capped layouts).
-        # Float SQ codecs run the XLA decode+gather scan.
-        from ..utils.config import sq_int8_active
-
-        if self.sq_type not in ("sq8", "sq4", "sq6") or \
-                not sq_int8_active():
-            return None
-    mode = config.kernel_mode
-    if not (mode == "pallas" or (mode == "auto" and on_tpu())):
-        return None
-    cache = getattr(self, "_pallas_plan_cache", None)
-    if cache is not None and cache[0] == self._version:
-        return cache[1]
-    if self.pq_m is not None:
-        width = self.pq_m
-    elif self.sq_type is not None:
-        width = self._codes.shape[1]
-    else:
-        width = self.d * 4
-    full = choose_lmax(self._counts_max())
-    if self.nlist * full * width <= self.PALLAS_LAYOUT_BUDGET_BYTES:
-        plan = ("full", None)
-    else:
-        budget_lmax = self.PALLAS_LAYOUT_BUDGET_BYTES // \
-            max(self.nlist * width, 1)
-        lmax = 128
-        while lmax * 2 <= budget_lmax:
-            lmax *= 2
-        if budget_lmax < 128:
-            plan = None
-        else:
-            counts = self._counts()
-            nspill = int(np.maximum(counts - lmax, 0).sum())
-            plan = (("spill", lmax)
-                    if nspill <= self.SPILL_FRACTION_MAX * self._nstored
-                    else None)
-    self._pallas_plan_cache = (self._version, plan)
-    return plan
-
-def _use_pallas_scan(self) -> bool:
-    return self._pallas_plan() is not None
-
-def _build_list_layout(self, lmax_cap: int | None = None):
-    """Host-side padded list layout: (payload (nlist, lmax, w), counts
-    (nlist,), row_pos (nlist, lmax), spill) — payload is byte codes for
-    PQ storage, raw fp32 rows otherwise.  Single source for the pallas
-    and device-sharded layouts.
-
-    With ``lmax_cap``, lists longer than the cap keep their first cap
-    members in the padded layout; the overflow rows come back in
-    ``spill`` = (payload (s, w), assign (s,), pos (s,) original-row
-    positions), unpadded.  spill is None otherwise."""
+def _build_list_layout(self):
+    """Host-side padded list layout for device sharding: (payload (nlist,
+    lmax, w), counts (nlist,), row_pos (nlist, lmax)) — payload is byte
+    codes for PQ/SQ storage, raw fp32 rows otherwise."""
     n = self._nstored
     counts = self._counts()
-    if lmax_cap is None and n and \
-            counts.max() > max(32 * n / self.nlist, 4096):
+    if n and counts.max() > max(32 * n / self.nlist, 4096):
         import sys
 
         print(f"duckdb_faiss_ext_tpu: IVF list skew is extreme "
@@ -167,100 +73,22 @@ def _build_list_layout(self, lmax_cap: int | None = None):
               f"padded layout will be memory-heavy — consider retraining "
               f"(kmeans_balance) or fewer lists", file=sys.stderr)
     lmax = choose_lmax(max(1, int(counts.max()) if n else 1))
-    if lmax_cap is not None:
-        lmax = min(lmax, lmax_cap)
-    kept = np.minimum(counts, lmax)
     row_pos = np.full((self.nlist, lmax), -1, np.int32)
     order = np.argsort(self._assign, kind="stable")
     offsets = np.concatenate([[0], np.cumsum(counts)])
     raw = self._codes if self._codes is not None else self._xb
     w = raw.shape[1] if self._codes is not None else self.d
     payload = np.zeros((self.nlist, lmax, w), raw.dtype)
-    spill = None
     if n:
         # Vectorized scatter (a Python loop over nlist was the build
         # bottleneck at 16k lists): rank of each sorted row within its
-        # list decides padded slot vs spill.
+        # list is its padded slot.
         sorted_assign = self._assign[order]
         ranks = np.arange(n, dtype=np.int64) - offsets[sorted_assign]
-        keep = ranks < lmax
-        flat = sorted_assign[keep].astype(np.int64) * lmax + ranks[keep]
-        payload.reshape(-1, w)[flat] = raw[order[keep]]
-        row_pos.reshape(-1)[flat] = order[keep]
-        if not keep.all():
-            sp = order[~keep]
-            spill = (raw[sp], self._assign[sp], sp.astype(np.int32))
-    return payload, kept.astype(np.int32), row_pos, spill
-
-def _build_device_pallas(self):
-    if getattr(self, "_device_pallas", None) is not None:
-        return self._device_pallas
-    if self._dr is not None:
-        return self._dr_build_device_pallas()
-    plan = self._pallas_plan()
-    lmax_cap = plan[1] if plan is not None else None
-    payload, counts, row_pos, spill = self._build_list_layout(lmax_cap)
-    if self.pq_m is not None:
-        extra = (jnp.asarray(self._pq_codebooks),)
-    elif self.sq_type is not None:
-        # Int8 SQ8 kernel extras: Σ(scale·c)² scattered into the padded
-        # (nlist, lmax) layout via row_pos, plus the decode ranges.
-        from ..ops.sq import sq_row_norms
-
-        from ..ops.sq import sq_row_sums
-
-        rn = sq_row_norms(self._codes, self._sq_scale, self.d,
-                          self.sq_type)
-        rs = sq_row_sums(self._codes, self.d, self.sq_type)
-        sq_rn_full, sq_rs_full = rn, rs
-        rn_layout = np.zeros(row_pos.shape, np.float32)
-        rs_layout = np.zeros(row_pos.shape, np.float32)
-        valid = row_pos >= 0
-        rn_layout[valid] = rn[row_pos[valid]]
-        rs_layout[valid] = rs[row_pos[valid]]
-        vmin, scale = self._sq_ranges()
-        extra = (jnp.asarray(rn_layout), jnp.asarray(rs_layout), vmin,
-                 scale)
-        if self.sq_type == "sq6":
-            # Plane-major payload for the SQ6 kernel: byte b of every
-            # 3-byte group in rows [b*lmax, (b+1)*lmax) — (nlist,
-            # 3*lmax, ceil(d/4)), the plane axis FOLDED into the sublane
-            # axis so the operand is (8,128)-tileable as stored
-            # (ops/pallas_ivf.py::_sq_scan_kernel sq6 branch; a 4-D
-            # layout cost a 15 G Mosaic relayout copy at marco).
-            nlist, lmax, w = payload.shape
-            payload = np.ascontiguousarray(
-                payload.reshape(nlist, lmax, w // 3, 3)
-                .transpose(0, 3, 1, 2)).reshape(nlist, 3 * lmax, w // 3)
-    else:
-        extra = ()
-        sq_rn_full = sq_rs_full = None
-    self._device_pallas = (
-        jnp.asarray(payload),
-        jnp.asarray(counts),
-        jnp.asarray(row_pos),
-        jnp.asarray(self._centroids),
-    ) + extra
-    if spill is None:
-        self._device_spill = None
-    else:
-        sp_payload, sp_assign, sp_pos = spill
-        s_pad = max(128, next_pow2(sp_pos.shape[0]))
-        if sq_rn_full is not None and self.sq_type in ("sq8", "sq4",
-                                                       "sq6"):
-            sp_rn = jnp.asarray(pad_rows(sq_rn_full[sp_pos], s_pad))
-            sp_rs = jnp.asarray(pad_rows(sq_rs_full[sp_pos], s_pad))
-        else:
-            sp_rn = sp_rs = None
-        self._device_spill = (
-            jnp.asarray(pad_rows(sp_payload, s_pad)),
-            jnp.asarray(pad_rows(sp_assign, s_pad).astype(np.int32)),
-            jnp.asarray(pad_rows(sp_pos, s_pad, fill=-1)
-                        .astype(np.int32)),
-            int(sp_pos.shape[0]),
-            sp_rn, sp_rs,
-        )
-    return self._device_pallas
+        flat = sorted_assign.astype(np.int64) * lmax + ranks
+        payload.reshape(-1, w)[flat] = raw[order]
+        row_pos.reshape(-1)[flat] = order
+    return payload, counts.astype(np.int32), row_pos
 
 def _mask_labels_dev(self):
     """Per-version cached labels_for_device_mask resolution (uploading
@@ -294,24 +122,22 @@ def _spill_mask(self, selector):
     self._mask_cache[key] = dev
     return dev
 
-def _pallas_mask(self, selector):
-    key = ("pallas", selector.cache_key(), self._version)
+def _padded_mask(self, selector):
+    """Selector mask over the device-resident (nlist, lmax) slots."""
+    key = ("padded", selector.cache_key(), self._version)
     hit = self._mask_cache.get(key)
     if hit is not None:
         return hit
     # Device-side build: gather+bit-test over the device-resident
     # row_pos from the ~n/8-byte packed bitmap (or sorted id set) —
-    # replaces the O(n) host unpack + O(nlist*lmax) scatter + ~10 MB
-    # mask upload that cost ~75 ms/call at the marco shape.
+    # replaces an O(n) host unpack + O(nlist*lmax) scatter + mask
+    # upload per call.
     from ..ops.selectors import device_row_mask
 
-    dev = device_row_mask(selector, self._build_device_pallas()[2],
+    dev = device_row_mask(selector, self._dr_device_layout()[2],
                           _mask_labels_dev(self))
     if dev is None:                     # host fallback (odd selectors)
-        if self._dr is not None:
-            rp = self._dr.row_pos      # host copy, no device fetch
-        else:
-            rp = np.asarray(self._build_device_pallas()[2])
+        rp = self._dr.row_pos          # host copy, no device fetch
         passing = selector.contains(self._ids)
         mask = np.zeros(rp.shape, np.int8)
         valid = rp >= 0
@@ -324,9 +150,8 @@ def _pallas_mask(self, selector):
 def _build_device(self):
     if self._dr is not None:
         raise errors.InvalidInputError(
-            "this device-resident index serves only through the "
-            "list-scan kernel (range search and nprobe beyond the "
-            "SMEM probe budget need a host-path index)")
+            "this device-resident index serves only through its padded "
+            "list scan (range search needs a host-path index)")
     if self._device is not None:
         return self._device
     n = self._nstored
@@ -434,31 +259,12 @@ def _sorted_ids(self, order) -> np.ndarray:
 
 
 
-IVFIndex.PALLAS_LAYOUT_BUDGET_BYTES = PALLAS_LAYOUT_BUDGET_BYTES
-IVFIndex.PALLAS_SMEM_PROBE_INTS = PALLAS_SMEM_PROBE_INTS
-#: batch size from which the pair-tile MXU-batched SQ scan takes over
-#: (ops/pallas_ivf_pairs.py); below it the per-query DMA kernel wins
-#: (tile-table padding overhead dominates at small nq).
-IVFIndex.PAIRS_MIN_BATCH = 256
-#: minimum lmax*d for the pair-tile path (below it the per-tile
-#: extraction passes outweigh the MXU dot win — measured 0.7x at
-#: 512*128 vs the per-query kernel, 2026-08-19).
-IVFIndex.PAIRS_MIN_WORK = 1 << 19
-#: scoped-VMEM budget for the pairs kernel's double-buffered list block
-#: + score tile (16 MB total scoped; ~3 MB reserved for unpack scratch,
-#: query operands, and Mosaic temporaries).
-IVFIndex.PAIRS_VMEM_BUDGET = 13 << 20
-IVFIndex.SPILL_FRACTION_MAX = SPILL_FRACTION_MAX
 IVFIndex._sq_codes_dev = _sq_codes_dev
 IVFIndex._ivf_sq_row_extras = _ivf_sq_row_extras
 IVFIndex._counts = _counts
-IVFIndex._counts_max = _counts_max
-IVFIndex._pallas_plan = _pallas_plan
-IVFIndex._use_pallas_scan = _use_pallas_scan
 IVFIndex._build_list_layout = _build_list_layout
-IVFIndex._build_device_pallas = _build_device_pallas
 IVFIndex._spill_mask = _spill_mask
-IVFIndex._pallas_mask = _pallas_mask
+IVFIndex._padded_mask = _padded_mask
 IVFIndex._build_device = _build_device
 IVFIndex.row_labels = row_labels
 IVFIndex._selector_mask = _selector_mask

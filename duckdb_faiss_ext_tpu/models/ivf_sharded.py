@@ -47,7 +47,6 @@ def _ivf_shard_over(self, mesh) -> None:
         mesh = _Mesh(_np.array(devs).reshape(usable, 1),
                      ("shard", "batch"))
     self._shard_mesh = mesh
-    self._device_pallas = None  # rebuilt sharded on next search
     # Re-sharding onto a different mesh must drop the old placement: the
     # array cache is keyed only on _version and the shard_map fn cache
     # doesn't include the mesh, so stale entries would silently keep the
@@ -64,7 +63,7 @@ def _ivf_build_sharded(self):
             and self._device_sharded[0] == self._version:
         return self._device_sharded[1]
     mesh = self._shard_mesh
-    payload, counts, row_pos, _ = self._build_list_layout()
+    payload, counts, row_pos = self._build_list_layout()
     # Skew-aware placement: permute lists so each shard's contiguous
     # block carries a balanced Σcounts (hot lists are probed most — a
     # raw contiguous block parks them all on one device).  The centroids

@@ -1,4 +1,4 @@
-"""LSH index model: sign-random-projection binary codes, MXU Hamming search.
+"""LSH index model: sign-random-projection binary codes, matmul Hamming search.
 
 Equivalent of ``faiss::IndexLSH`` (factory ``LSH`` / ``LSHr`` / ``LSHt`` /
 ``LSHrt``), reachable through the reference because it forwards any factory
@@ -9,10 +9,10 @@ thresholds (making the index require training); distances returned are
 Hamming counts as float32; the metric argument is ignored (FAISS IndexLSH
 always ranks by Hamming distance).
 
-TPU-native design — no bit-twiddling popcount loop: codes are stored as ±1
+Device design — no bit-twiddling popcount loop: codes are stored as ±1
 rows in an inner :class:`FlatIndex` with INNER_PRODUCT ordering, because for
 ±1 vectors ``hamming(a, b) = (nbits − a·b) / 2``.  The whole search is the
-same fused MXU matmul + top-k kernel as Flat (max dot product == min
+same fused matmul + top-k kernel as Flat (max dot product == min
 Hamming), followed by one affine transform on device, so it inherits the
 Pallas/XLA kernel dispatch, selector masks, and the single-fetch serving
 tier.  Engine extension beyond the FAISS grammar: an explicit bit count
@@ -59,7 +59,7 @@ class LSHIndex(Index):
                                              seed=ROTATION_SEED).A
         else:
             self._rot = None
-        #: ±1 code rows stored int8 (exact int8 MXU dot at 4× less HBM than
+        #: ±1 code rows stored int8 (exact int8 dot at 4× less HBM than
         #: fp32); INNER_PRODUCT so max dot == min Hamming.
         self._codes = FlatIndex(self.nbits, resolve_metric("INNER_PRODUCT"),
                                 storage="pm1_i8")

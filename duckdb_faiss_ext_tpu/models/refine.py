@@ -7,9 +7,9 @@ grammar is its observable surface).  The base index (PQ / SQ / IVFPQ …)
 produces k·k_factor approximate candidates; the wrapper re-scores them
 against raw fp32 vectors and returns the exact top-k.
 
-TPU design: the raw store reuses FlatIndex (padded capacity-bucketed device
+Device design: the raw store reuses FlatIndex (padded capacity-bucketed device
 buffer); the re-rank is one jitted gather + distance tile + top_k over the
-(nq, k_base) candidate set — MXU work over a tiny tensor, no host math.
+(nq, k_base) candidate set — matmul work over a tiny tensor, no host math.
 """
 
 from __future__ import annotations

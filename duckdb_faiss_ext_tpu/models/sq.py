@@ -2,10 +2,10 @@
 
 Equivalent of faiss::IndexScalarQuantizer (factory ``SQ8`` / ``SQ4`` /
 ``SQ6`` / ``SQfp16`` / ``SQbf16``).  The quantized types require training
-(per-dim ranges); the float codecs (fp16, and bf16 — the MXU-native type,
+(per-dim ranges); the float codecs (fp16, and bf16 — the matmul type,
 an engine extension matching faiss QT_bf16) are training-free.  Codes are the only storage — SQ4/SQ6 are
 bit-packed (ops/sq.py packing layouts), true compression matching the FAISS
-memory profile; search decodes chunks on the fly into the MXU distance tile
+memory profile; search decodes chunks on the fly into the matmul distance tile
 (ops/sq.py).
 """
 
@@ -27,7 +27,7 @@ from ..utils.config import (config, next_capacity, next_pow2,
 from ..utils.transfer import upload_queries
 from .base import Index, SearchResult, as_matrix
 
-#: training-free float codecs; bf16 is the MXU-native storage type.
+#: training-free float codecs; bf16 is the matmul storage type.
 FLOAT_SQ_TYPES = ("SQfp16", "SQbf16")
 
 
@@ -120,7 +120,7 @@ class SQIndex(Index):
         self._mask_cache.clear()
 
     def _int8_rows_dev(self):
-        """Per-row (Σ(scale·c)², Σc) fp32 (cap,) pair for the int8 MXU
+        """Per-row (Σ(scale·c)², Σc) fp32 (cap,) pair for the int8 matmul
         scan, which reads the SAME packed device code buffer as the decode
         path (see ops/sq.py::sq_int8_search) — this is its only extra
         state."""

@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference's native tier is C++ (the DuckDB extension + FAISS).  Here the
-TPU compute path is JAX/XLA/Pallas; the host-side runtime pieces that are
+device compute path is JAX/XLA/Pallas; the host-side runtime pieces that are
 genuinely CPU-bound — the selection-bitmap builder with its 8-wide packing
 loop (src/faiss_extension.cpp:789-796) and the top-k result merge used by the
 multi-host driver — are C++ (native/bitmapper.cpp), built on demand with g++

@@ -1,4 +1,4 @@
-// Native host-side kernels for the TPU vector-search runtime.
+// Native host-side kernels for the vector-search runtime.
 //
 // dfx_build_bitmap: dense selection-bitmap construction — the equivalent of
 // the reference's ProcessSelectionvector hot loop

@@ -1,16 +1,16 @@
 """Pairwise distance tiles for all nine metrics.
 
-This is the TPU-native replacement for FAISS's distance kernels (BLAS sgemm
+This is the device replacement for FAISS's distance kernels (BLAS sgemm
 for L2/IP plus scalar loops in extra_distances for the rest; used by the
 reference via ``Index::search``, src/faiss_extension.cpp:631).
 
 Design: every metric is computed as a (Q, C) tile of scores from a (Q, D)
 query block and a (C, D) corpus block.
 
-* ``L2`` and ``INNER_PRODUCT`` lower to a single MXU matmul.  L2 uses the
-  ``‖x‖² − 2·x·yᵀ + ‖y‖²`` decomposition so the FLOPs ride the systolic array.
+* ``L2`` and ``INNER_PRODUCT`` lower to a single matmul.  L2 uses the
+  ``‖x‖² − 2·x·yᵀ + ‖y‖²`` decomposition so the FLOPs ride the matrix units.
   FAISS's METRIC_L2 is the *squared* L2 distance — we keep that.
-* The seven remaining metrics are elementwise (Q, C, D) reductions on the VPU.
+* The seven remaining metrics are elementwise (Q, C, D) reductions.
   Callers bound C so the broadcast tile fits on chip.
 
 All computations are fp32.  ``precision`` selects the matmul mode: HIGHEST
@@ -23,7 +23,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Metrics whose pairwise tile is a matmul (MXU path).
+# Metrics whose pairwise tile is a matmul (matmul path).
 MXU_METRICS = ("INNER_PRODUCT", "L2")
 
 
@@ -36,7 +36,7 @@ def pairwise_tile(
 ) -> jax.Array:  # (Q, C) fp32 distances (or similarities for IP/Jaccard)
     if metric == "INNER_PRODUCT":
         if xq.dtype == jnp.int8 and xb.dtype == jnp.int8:
-            # Exact int8 MXU dot (±1 LSH sign codes, FlatIndex pm1_i8
+            # Exact int8 matmul dot (±1 LSH sign codes, FlatIndex pm1_i8
             # storage): int32 accumulation, no rounding at any precision
             # mode, 4× less HBM traffic than the fp32 corpus.
             return jax.lax.dot_general(
@@ -45,7 +45,7 @@ def pairwise_tile(
         return jnp.dot(xq, xb.T, precision=precision,
                        preferred_element_type=jnp.float32)
     if metric == "L2":
-        # Squared L2 via MXU decomposition; clamp tiny negatives from rounding.
+        # Squared L2 via matmul decomposition; clamp rounding negatives.
         qn = jnp.sum(xq * xq, axis=-1, keepdims=True)        # (Q, 1)
         bn = jnp.sum(xb * xb, axis=-1, keepdims=True).T      # (1, C)
         xy = jnp.dot(xq, xb.T, precision=precision,
@@ -64,7 +64,7 @@ def _elementwise_tile(xq, xb, metric, metric_arg):
 def elementwise_scores(x, y, metric, metric_arg=0.0):
     """Elementwise-metric distances over any broadcastable operand pair
     whose last axis is the vector dimension (single source of truth for the
-    seven non-MXU metric formulas; flat and IVF scans both call this)."""
+    seven non-matmul metric formulas; flat and IVF scans both call this)."""
     if metric == "L1":
         return jnp.sum(jnp.abs(x - y), axis=-1)
     if metric == "Linf":

@@ -1,17 +1,15 @@
 """Fused brute-force k-NN search: blocked distance scan + top-k.
 
-TPU-native replacement for the reference's hot path — ``Index::search`` under
+Device replacement for the reference's hot path — ``Index::search`` under
 ``faiss_lock`` (src/faiss_extension.cpp:629-638), which in FAISS is a BLAS
-GEMM plus a per-query heap select.
+GEMM plus a per-query heap select.  On a single GPU, L2/inner-product
+searches with small k take the fused kernel of ops/flat_topk.py instead;
+this scan serves every other case.
 
-Blocking strategy (measured on v5e): XLA's TopK custom-call has a large
-per-call cost but near-linear scaling in width, so the fastest exact layout
-is *query-blocked, corpus-wide*: for each block of ≤256 queries, one MXU
-matmul produces a (qb, C) score tile (bounded to ~1 GB of HBM) and ONE
-``lax.top_k`` selects from it.  A corpus-chunked running merge (many narrow
-top-k calls) measured 30× slower; a Pallas in-kernel argmax merge
-(ops/pallas_topk.py) was latency-bound on cross-lane reductions.  The score
-tile is transient and XLA reuses the buffer across blocks.
+Blocking strategy: query-blocked, corpus-wide — for each block of ≤256
+queries, one matmul produces a (qb, C) score tile (bounded to a share of
+device memory, SCORE_TILE_FRACTION) and ONE top-k selects from it.  The
+score tile is transient and XLA reuses the buffer across blocks.
 
 Semantics mirrored from FAISS:
 * Results are sorted best-first ("rank" order in the output schema).
@@ -23,7 +21,7 @@ Semantics mirrored from FAISS:
 returning max-oriented scores (-inf = missing) and *global* row positions
 (``row_offset``) so parallel/sharded.py can merge shard results with one
 more top-k under shard_map.  An optional ``mask`` (bool per corpus row)
-implements filtered search as a semi-join fused into the scan — the TPU
+implements filtered search as a semi-join fused into the scan — the device
 equivalent of FAISS's IDSelector consulted inside scan loops
 (src/faiss_extension.cpp:959,1008).
 """
@@ -36,12 +34,16 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..utils.config import memory_budget
 from .distance import pairwise_tile
 
 # Metrics where larger is better (FAISS is_similarity_metric).
 SIMILARITY_METRICS = frozenset({"INNER_PRODUCT", "Jaccard"})
 
 _NEG_INF = float("-inf")
+
+#: share of device memory the (q_block, c_block) fp32 score tile may take
+SCORE_TILE_FRACTION = 1 / 16
 
 
 from ..utils.config import next_pow2 as _next_pow2
@@ -51,14 +53,15 @@ def choose_blocks(cap: int, nq: int, d: int, metric: str,
                   k: int = 1) -> tuple[int, int]:
     """(q_block, c_block): per-step tile is (q_block, c_block) fp32 scores.
 
-    MXU metrics: bound the score tile to ~1 GB so the corpus-wide top_k
-    stays a single call for corpora ≤ ~4M rows.  Elementwise metrics also
+    Matmul metrics: bound the score tile to SCORE_TILE_FRACTION of device
+    memory so the corpus-wide top_k stays a single call for corpora of
+    millions of rows.  Elementwise metrics also
     bound the (q, c, d) broadcast.  Both blocks are powers of two dividing
     the (power-of-two) padded shapes; c_block is never below k (the
     per-block top-k needs k candidates per step)."""
     qb = min(nq, 256)
     if metric in ("INNER_PRODUCT", "L2"):
-        budget_elems = (1 << 28)          # 1 GB of fp32 scores
+        budget_elems = memory_budget(SCORE_TILE_FRACTION) // 4
         cb = max(1024, budget_elems // qb)
     else:
         cb = max(128, (1 << 24) // max(qb * d, 1))
@@ -72,9 +75,9 @@ def exact_topk(scores, k: int):
     Reshape (Q, N) → (Q, N/128, 128) windows; every element of the true
     top-k lives in one of the top-k windows ranked by window max (≤ k
     windows can have max ≥ the k-th best value), so selecting k windows and
-    rescanning k·128 candidates is exact.  The window max is a native VPU
-    lane reduction, so this replaces one TopK over N with one over N/128
-    plus one over k·128 — much cheaper for large N."""
+    rescanning k·128 candidates is exact.  The window max is a cheap
+    reduction, so this replaces one TopK over N with one over N/128 plus
+    one over k·128 — much cheaper for large N."""
     q, n = scores.shape
     w = 128
     if n % w or n // w < k or n <= 4096:

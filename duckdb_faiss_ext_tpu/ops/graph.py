@@ -2,11 +2,11 @@
 
 The reference's HNSW surface (``HNSWn`` factory strings,
 src/faiss_extension.cpp:133-141, 691-702) is a pointer-chasing graph walk —
-the classic TPU-hostile shape.  models/hnsw.py's first-line answer is the
+the classic device-hostile shape.  models/hnsw.py's first-line answer is the
 internal IVF partition; this module adds true *graph-algorithm* parity: a
 fixed-degree neighbour graph searched by a batched, fixed-iteration greedy
 walk, the construction popularised by CAGRA (Ootomo et al., 2023) for GPUs
-and equally well-shaped for TPUs:
+and equally well-shaped for accelerators:
 
 * every per-iteration step is a dense, static-shape array op (gather the
   frontier's neighbour lists, one fused distance tile, ONE wide top-k merge
@@ -17,13 +17,13 @@ and equally well-shaped for TPUs:
 * the walk runs a *static* number of iterations under ``lax.fori_loop`` so
   XLA compiles one program per (pool, width, iters) bucket.
 
-Build is the CAGRA recipe: a k-NN graph — exact (query-blocked MXU scan
+Build is the CAGRA recipe: a k-NN graph — exact (query-blocked matmul scan
 over the corpus inside ONE jitted loop) up to ~2M rows, and past that a
 clustered top-2-list scan (n²·4/nlist FLOPs) refined by synchronous
 NN-descent rounds — then rank-based pruning to degree/2 forward edges plus
 reverse-edge augmentation filling the other half.
 
-Everything is restricted to the MXU metrics (L2 / INNER_PRODUCT), matching
+Everything is restricted to the matmul metrics (L2 / INNER_PRODUCT), matching
 the regime gate in models/hnsw.py.
 """
 
@@ -55,7 +55,7 @@ def _knn_graph_scan(xb, nvalid, metric_arg, *, degree, q_block, metric,
                     precision):
     """(cap, d) padded corpus → (cap, degree) int32 neighbour ids, -1 where
     fewer than ``degree`` valid neighbours exist.  One program: a fori_loop
-    of (q_block, cap) MXU score tiles, each reduced by ONE wide top_k."""
+    of (q_block, cap) matmul score tiles, each reduced by ONE wide top_k."""
     cap, d = xb.shape
     sim = metric in SIMILARITY_METRICS
     col = lax.broadcasted_iota(jnp.int32, (1, cap), 1)
@@ -86,9 +86,7 @@ def _knn_graph_scan_range(xb, nvalid, metric_arg, out, b0, *, degree,
                           q_block, nblocks, metric, precision):
     """Query-blocks [b0, b0+nblocks) of _knn_graph_scan, carry donated —
     the host-chunked variant for large corpora, where the single-fori
-    program is a minutes-long dispatch the TPU worker kills (observed
-    at 1M×128 inter-256, 2026-08-20; same failure mode as the marco
-    clustered scan)."""
+    program would be one minutes-long dispatch."""
     cap, d = xb.shape
     sim = metric in SIMILARITY_METRICS
     col = lax.broadcasted_iota(jnp.int32, (1, cap), 1)
@@ -132,8 +130,7 @@ def build_knn_graph(xb: np.ndarray, degree: int, metric: str,
             precision=precision)
         return np.asarray(out[:n])
     # Host-chunked for large corpora (one dispatch per 512 blocks): the
-    # single-fori program at 1M rows runs minutes and the TPU worker
-    # kills it mid-dispatch.
+    # single-fori program at 1M rows would be one minutes-long dispatch.
     out = jnp.full((cap, degree), -1, jnp.int32)
     done = 0
     while done < nblocks:
@@ -144,8 +141,8 @@ def build_knn_graph(xb: np.ndarray, degree: int, metric: str,
             metric=metric, precision=precision)
         np.asarray(out[:1, :1])   # sync: dispatches enqueue async, so
         # without a fetch the whole loop is ONE unbounded in-flight
-        # queue — the exact minutes-long-work worker kill the chunking
-        # exists to avoid (graph1m_d128 crash, 2026-08-20)
+        # queue — the minutes-long dispatch the chunking exists to
+        # avoid
         done += nb
     return np.asarray(out[:n])
 
@@ -265,9 +262,9 @@ def _clustered_knn_scan_step(xb, table, metric_arg, vals, ids, l0, *,
                              codec=None, vmin=None, scale=None):
     """One host-dispatched chunk of ``ncells`` lists of the clustered
     scan, carry donated.  A single fori over ALL cells (32,761 at the
-    8.8M marco build) is one monolithic ~30-min XLA dispatch — the
-    round-3 TPU-worker crash; chunking bounds each dispatch to seconds
-    and lets the host print progress between chunks."""
+    8.8M-row build) is one monolithic ~30-min XLA dispatch; chunking
+    bounds each dispatch to seconds and lets the host print progress
+    between chunks."""
     body = _cluster_scan_body(xb, table, metric_arg, degree=degree,
                               lmax=lmax, metric=metric,
                               precision=precision, codec=codec,
@@ -583,7 +580,7 @@ def build_graph(xb: np.ndarray, degree: int, metric: str,
                 refine_rounds: int = 2) -> np.ndarray:
     """Full CAGRA-style build: kNN graph at ``intermediate`` degree
     (default 2×degree, the CAGRA default ratio) → forward-first prune to
-    degree (augment_graph).  The kNN stage is the exact MXU scan up to
+    degree (augment_graph).  The kNN stage is the exact matmul scan up to
     ``exact_max`` rows and the clustered top-2-list scan beyond (build cost
     n²·4/nlist), refined by ``refine_rounds`` synchronous NN-descent rounds
     — the efConstruction-scaled knob on the approximate-build path (the
@@ -612,8 +609,8 @@ def _pack_fill(out, codes, idx_c, r0, *, rows: int):
     immediate fold to (rows, deg*w).  Chunked by the caller so the
     gather's LANE-PADDED intermediate stays tens of MB: a whole-graph
     (N, deg, w) u8 gather at w < 128 lanes materialises at ceil(w/128)·
-    128 lanes — 2x for int4 d=128, which turned the 8.6 GB deg-128 pack
-    into a 17.2 GB allocation (graph1m_d128 OOM, 2026-08-20)."""
+    128 lanes — 2x for int4 d=128, which would turn an 8.6 GB deg-128
+    pack into a 17.2 GB allocation."""
     deg = idx_c.shape[1]
     w = codes.shape[1]
     blk = jnp.take(codes, jnp.maximum(idx_c, 0).reshape(-1), axis=0)
@@ -644,33 +641,30 @@ def pack_neighbors(xb_dev: jax.Array, graph_dev: jax.Array,
     [j*w, (j+1)*w)) — 2-D so the minor dim is lane-aligned for every
     code width (a 3-D (N, deg, w) layout pads w to 128 lanes).
 
-    Measured on v5e: XLA's row gather costs ~16 ns per scattered row
-    regardless of row bytes (descriptor-latency-bound), which makes the
-    naive walk 100% gather-bound (8.2 ms of an 8.2 ms iteration at
-    B=1024).  Packing trades deg× memory for gathering whole deg×d
-    blocks — one descriptor per frontier node instead of one per
-    neighbour — turning the expansion gather bandwidth-bound.  Traversal
+    A scattered row gather pays a fixed cost per row whatever its
+    bytes, which makes the naive walk gather-bound.  Packing trades deg×
+    memory for gathering whole deg×d blocks — one gathered row per
+    frontier node instead of one per neighbour.  Traversal
     scores are approximate (the walk is too); the final pool is reranked
     against the fp32 corpus.
 
     dtype bfloat16 → returns the packed array.  dtype int8 → returns
     (packed int8, inv_scale fp32 scalar): symmetric max-abs quantization,
     decoded to fp32 after the gather (int8 exists purely to halve pack
-    memory — the gather cost is per-descriptor, not per-byte).
+    memory — the gather cost is per-row, not per-byte).
     dtype "int4" → returns (packed uint8 (N, deg*ceil(d/2)), inv_scale):
     two 4-bit codes per byte (dim 2j low nibble, 2j+1 high), symmetric ±7
     quantization — halves pack memory again, DOUBLING the degree
-    affordable under a fixed HBM budget.  Traversal scores are coarser but
+    affordable under a fixed memory budget.  Traversal scores are coarser but
     traversal only ranks candidates; the final pool is fp32-reranked
     either way.  The walk tells int4 from int8 packs by the array dtype
     (uint8 vs int8) — a string marker could not cross the jit boundary.
 
     ``parts > 1`` splits the pack row-wise into that many tensors
-    (returned as ((part0, part1, …), inv_scale)): a single v5e HBM
-    allocation caps near 6 GB, so a 2-part int4 pack carries degree 128
-    at 1M×128 where one tensor cannot.  The walk gathers from every part
-    and lane-selects by row range — descriptors scale with parts, but
-    the packed gather starts ~64× ahead of the scattered one."""
+    (returned as ((part0, part1, …), inv_scale)), each within the
+    single-tensor budget (models/hnsw.py pack_budget_bytes), so a 2-part
+    pack carries twice the degree one tensor can.  The walk gathers from
+    every part and lane-selects by row range."""
     idx = jnp.maximum(graph_dev, 0)          # -1 rows: garbage, masked later
     if dtype == "int4":
         amax = jnp.maximum(jnp.max(jnp.abs(xb_dev)), 1e-30)
@@ -771,8 +765,9 @@ def walk_scan(xb, graph, xq, nvalid, metric_arg, mask, pack, *, k, pool,
 
     ``codec`` (sq8/sq4/sq6 + vmin/scale) marks ``xb`` as a PACKED SQ code
     buffer (n, w) uint8 instead of fp32 rows: every row fetch decodes
-    in-place.  This is the 8.8M×1536 regime — 54 GB of fp32 rows cannot
-    exist on a 16 GB chip, the 13.6 GB SQ8 code buffer can; the walk's
+    in-place.  This is the 8.8M×1536 regime — 54 GB of fp32 rows do not
+    fit beside the index on one device, the 13.6 GB SQ8 code buffer does;
+    the walk's
     output distances are then exact against the QUANTIZED vectors,
     matching IVF,SQ semantics."""
     B, d = xq.shape
@@ -782,12 +777,11 @@ def walk_scan(xb, graph, xq, nvalid, metric_arg, mask, pack, *, k, pool,
     else:
         # Lane-folded adjacency: (N/fold, fold*deg) with node i's list at
         # row i//fold, lanes [(i%fold)*deg, (i%fold+1)*deg).  An (N, 64)
-        # int32 gather operand makes XLA materialise a 64→128 lane-pad
-        # copy of the WHOLE adjacency — +2.1 GiB at the 8.8M deg-64 marco
-        # shape, the 146.8 MB-over compile OOM of 2026-08-21.  Folding to
-        # 128 lanes keeps the stored layout tile-aligned; the row-group
-        # gather + per-row lane select below is a few extra VPU ops on a
-        # (B, width, 128) block.
+        # int32 gather operand can make XLA materialise a 64→128 lane-pad
+        # copy of the WHOLE adjacency (+2.1 GiB at 8.8M rows, deg 64).
+        # Folding to 128 lanes keeps the stored layout tile-aligned; the
+        # row-group gather + per-row lane select below is a few extra
+        # elementwise ops on a (B, width, 128) block.
         fold = gl // deg
         if fold * deg != gl:
             raise ValueError(f"folded adjacency width {gl} is not a "
@@ -807,7 +801,7 @@ def walk_scan(xb, graph, xq, nvalid, metric_arg, mask, pack, *, k, pool,
             return jnp.take(xb, jnp.maximum(ids2, 0), axis=0)
 
     # Informed init: exact-scan a strided corpus subsample (a dense slice —
-    # no gather, one MXU tile) and seed the pool with its best entries.
+    # no gather, one matmul tile) and seed the pool with its best entries.
     # Purely random seeds lose whole clusters when the graph has isolated
     # components (recall caps at 1 − (1 − cluster_frac)^pool); a strided
     # sample covers every ≥stride-sized region deterministically.
@@ -926,15 +920,15 @@ def walk_scan(xb, graph, xq, nvalid, metric_arg, mask, pack, *, k, pool,
 
     scores, ids, _ = lax.fori_loop(0, iters, body, (scores, ids, expanded))
     # Elementwise metrics score fp32 regardless of `precision` — only the
-    # MXU metrics need the fast-mode rerank.
+    # matmul metrics need the fast-mode rerank.
     rerank = pack is not None or codec is not None or (
         precision != lax.Precision.HIGHEST
         and metric in ("INNER_PRODUCT", "L2"))
     if rerank:
         # Exact rerank of the pool: one (B, pool) fp32 gather+score pass
-        # (≈1 ms at B=1024/pool=64 — traversal cost dominates).  Restores
-        # exact output distances after bf16 packed traversal — and after a
-        # fast-mode scattered walk, whose MXU scoring is bf16 too.
+        # (small next to the traversal).  Restores exact output distances
+        # after bf16 packed traversal — and after a fast-mode scattered
+        # walk, whose scoring is reduced-precision too.
         # HIGHEST unconditionally: the rerank exists to be exact, and in
         # fast mode `precision` would silently downcast it to bf16 — the
         # tensor is tiny, so fp32 accumulation costs nothing.

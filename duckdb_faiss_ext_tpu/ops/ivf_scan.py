@@ -1,10 +1,10 @@
 """IVF search: coarse-quantizer assignment + gathered inverted-list scan.
 
-TPU-native replacement for faiss::IndexIVF::search as the reference drives it
+Device replacement for faiss::IndexIVF::search as the reference drives it
 (nprobe + nested quantizer params, src/faiss_extension.cpp:675-689).  FAISS
 walks per-list arrays with scalar loops; here:
 
-* coarse assignment is one (Q × nlist) distance tile + top-nprobe — MXU work;
+* coarse assignment is one (Q × nlist) distance tile + top-nprobe;
 * the inverted lists live as one row-sorted corpus buffer plus (offsets,
   counts) int32 list metadata, so "scan the probed lists" is nprobe
   contiguous (Lmax, w) dynamic slices per query (slice_probed_lists)
@@ -16,8 +16,7 @@ results match FAISS given identical centroids/assignments (the seeded
 k-means of ops/kmeans.py).
 
 The scan is chunked over queries to bound the gathered (q, nprobe·Lmax, d)
-tile.  A Pallas double-buffered gather kernel is the planned upgrade for
-skewed/large lists (PrefetchScalarGridSpec pattern).
+tile.
 """
 
 from __future__ import annotations
@@ -29,21 +28,20 @@ import jax.numpy as jnp
 from jax import lax
 
 from .distance import pairwise_tile
-from .flat_search import (SIMILARITY_METRICS, _NEG_INF, exact_topk,
-                          finalize_scores)
+from .flat_search import SIMILARITY_METRICS, _NEG_INF, exact_topk
 
 #: spill-scan membership: up to this many probes, per-probe equality
-#: compares (nprobe fused (nq, sc) VPU passes) beat the one-hot
-#: row-gather + transpose they replace (see ivf_spill_scan).
+#: compares (nprobe fused (nq, sc) elementwise passes) replace the
+#: one-hot row-gather + transpose (see ivf_spill_scan).
 MEMBERSHIP_CMP_MAX = 32
 
 
 def inchunk_rerank_kscan(k: int, ncand: int, metric: str, precision) -> int:
     """Widened candidate count for the fast-mode in-chunk exact rerank:
-    bf16 MXU scans cap top-k agreement with fp32 at ~0.9, so take a wider
-    bf16 top-k and re-score those rows at HIGHEST (< k_scan/ncand extra
-    work).  Returns k when no rerank applies (exact precisions,
-    elementwise metrics — already fp32)."""
+    reduced-precision scans (TF32 on the GPU) lose top-k agreement with
+    fp32, so take a wider top-k and re-score those rows at HIGHEST
+    (< k_scan/ncand extra work).  Returns k when no rerank applies (exact
+    precisions, elementwise metrics — already fp32)."""
     if metric not in ("INNER_PRODUCT", "L2") or \
             precision == lax.Precision.HIGHEST:
         return k
@@ -54,9 +52,8 @@ def slice_probed_lists(sorted_buf, offsets, counts, probes_c, *, lmax):
     """Fetch probed lists as CONTIGUOUS block slices from the row-sorted
     buffer: one (lmax, w) dynamic slice per (query, probe) instead of one
     row gather per candidate — XLA lowers the double-vmap to a gather
-    whose slice size is (lmax, w), i.e. ~lmax× fewer descriptors than the
-    list_table row gather (row gathers measure ~16 ns/row on TPU
-    regardless of bytes; descriptor count is the cost).
+    whose slice size is (lmax, w), i.e. ~lmax× fewer index entries than a
+    per-row gather.
 
     Returns (xc (qc, nprobe, lmax, w), pos (qc, nprobe, lmax) int32 sorted
     positions, valid (qc, nprobe, lmax) bool).  Lists shorter than lmax
@@ -80,10 +77,11 @@ def slice_probed_lists(sorted_buf, offsets, counts, probes_c, *, lmax):
 
 
 def inchunk_exact_rerank(xq_c, xc, score, *, k, k_scan, metric):
-    """Top-k_scan over bf16 ``score`` (qc, ncand), then HIGHEST re-score of
-    the selected rows from the in-scope candidate tile ``xc`` (qc, ncand,
-    d).  Returns (s (qc, k) max-oriented, sel (qc, k) candidate indices).
-    -inf (missing/masked) slots stay missing."""
+    """Top-k_scan over reduced-precision ``score`` (qc, ncand), then
+    HIGHEST re-score of the selected rows from the in-scope candidate
+    tile ``xc`` (qc, ncand, d).  Returns (s (qc, k) max-oriented, sel
+    (qc, k) candidate indices).  -inf (missing/masked) slots stay
+    missing."""
     s, sel = exact_topk(score, k_scan)
     if k_scan == k:
         return s, sel
@@ -131,7 +129,7 @@ def ivf_search(
     sim = metric in SIMILARITY_METRICS
     nprobe = min(nprobe, nlist)
 
-    # --- coarse assignment: top-nprobe lists per query (MXU tile) ---------
+    # --- coarse assignment: top-nprobe lists per query (one matmul) ----
     cdist = pairwise_tile(xq, centroids, metric, metric_arg, precision)
     cscore = cdist if sim else -cdist
     _, probe_ids = lax.top_k(cscore, nprobe)              # (nq, nprobe)
@@ -218,7 +216,7 @@ def ivf_pq_search(
 ):
     """IVF with PQ- or RQ-encoded residuals (faiss IndexIVFPQ /
     IndexIVFResidualQuantizer analogue, by_residual): candidate
-    reconstruction = centroid[list] + decode(code), then the same MXU
+    reconstruction = centroid[list] + decode(code), then the same matmul
     distance tile as the Flat scan — identical results to residual
     LUT-ADC for L2/IP with only byte codes read from HBM."""
     from .pq import codec_decode
@@ -235,7 +233,7 @@ def ivf_pq_search(
     L = min(lmax, codes_sorted.shape[0])
     ncand = nprobe * L
     m = codes_sorted.shape[1]
-    # Fast-mode in-chunk rerank vs the DECODED rows: removes the bf16
+    # Fast-mode in-chunk rerank vs the DECODED rows: removes the TF32
     # matmul noise on top of the codec error (parity with the fp32 ADC
     # scan FAISS computes); the codec error itself is the storage choice.
     k_scan = inchunk_rerank_kscan(k, ncand, metric, precision)
@@ -299,7 +297,7 @@ def choose_q_chunk(nq: int, ncand: int, d: int) -> int:
 @functools.partial(
     jax.jit,
     static_argnames=("k", "metric", "precision", "pq", "codec", "sq",
-                     "n_used", "int8_dot", "int8_via", "rerank_qb",
+                     "n_used", "int8_dot", "rerank_qb",
                      "membership"))
 def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
                    codebooks, probe_ids, xq, mask, metric_arg, *,
@@ -307,16 +305,15 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
                    sq=None, sq_vmin=None, sq_scale=None,
                    n_used: int | None = None,
                    spill_rn=None, spill_rs=None, int8_dot: bool = False,
-                   int8_via: str = "bf16",
                    rerank_qb: int | None = None,
                    membership: str = "auto"):
     """Scan the IVF overflow-spill region: rows whose list exceeded the
-    capped padded layout (models/ivf.py quantile-lmax plan).
+    fixed lmax of the device-resident padded layout (models/ivf_device.py).
 
     Every spill row is scored against every query, then masked to rows
     whose list is in that query's probe set — exact IVF semantics (a
     candidate is returned iff its list was probed), with the tail of the
-    skew distribution riding one dense MXU tile instead of exploding the
+    skew distribution riding one dense matmul tile instead of exploding the
     padded (nlist, lmax, ·) layout.
 
     spill_payload: (s_pad, d) fp32 rows, or (s_pad, m) uint8 codes when
@@ -330,14 +327,10 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
     sim = metric in SIMILARITY_METRICS
 
     # Probed-list membership.  For small nprobe, an unrolled loop of
-    # lane-aligned equality compares: probed[q, r] = OR_j
-    # (probe_ids[q, j] == asg[r]) — nprobe fused (nq, sc) VPU passes
-    # with NO gather and NO transpose.  The previous one-hot row-gather
-    # + .T moved ~nq*sc bools through a lane transpose EVERY chunk —
-    # at the 8.8M x 1536 marco spill (1.05M rows, b1024) the transpose,
-    # not the bf16 digit-dot einsum, dominated the measured 0.27 us/row.
-    # Past MEMBERSHIP_CMP_MAX probes the compare loop's VPU passes cost
-    # more than the gather; keep the one-hot path there.
+    # equality compares: probed[q, r] = OR_j (probe_ids[q, j] == asg[r])
+    # — nprobe fused (nq, sc) elementwise passes with no gather and no
+    # transpose.  Past MEMBERSHIP_CMP_MAX probes the compare loop costs
+    # more than a one-hot row-gather; keep that path there.
     nprobe = probe_ids.shape[1]
     cmp_membership = (nprobe <= MEMBERSHIP_CMP_MAX
                       if membership == "auto" else membership == "cmp")
@@ -366,8 +359,8 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
         return chunk_payload
 
     # Chunk the scan so the decoded fp32 tile stays bounded — a 5M-row SQ
-    # spill decoded in one piece is a 30 GB allocation (observed at the
-    # 8.8M x 1536 MARCO shape); a large spill region is otherwise valid.
+    # spill of 1536-dim rows decoded in one piece is a 30 GB allocation;
+    # a large spill region is otherwise valid.
     mxu = metric in ("INNER_PRODUCT", "L2")
     # Decode-free int8 scoring (same recentred two-digit scheme as the
     # padded kernels) when the caller provides per-row Σ(scale·c)²/Σc:
@@ -390,10 +383,8 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
     while s_pad % sc and sc > 1:
         sc //= 2
     # The spill buffer is a growth/pre-allocation CAPACITY — often ~2x
-    # the rows actually appended (measured: 506 ms of a 958 ms marco
-    # batch went to the spill scan, half of it over garbage rows; the
-    # cost is proportional to rows scanned, so chunk size stays small).
-    # Scan only whole chunks covering n_used; the tail chunks beyond
+    # the rows actually appended, and the cost is proportional to rows
+    # scanned.  Scan only whole chunks covering n_used; the tail chunks beyond
     # hold pos=-1 padding only.  n_used is a static arg: round it up to
     # pow2/16 granularity so spill growth recompiles O(log) times, not
     # per ingest chunk.
@@ -428,29 +419,12 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
             from .sq import sq_unpack_i8
 
             xc8 = sq_unpack_i8(pl, d, sq)                  # (sc, d) int8
-            if int8_via == "bf16":
-                # XLA's TPU int8 dot_general runs ~15x off the MXU
-                # (measured 0.45 us/row at the 8.8M x 1536 marco spill) —
-                # it widens to fp32 outside the systolic array.  int8
-                # values are EXACT in bf16 (|v| <= 128 < 2^8 mantissa)
-                # and the MXU accumulates fp32, so casting both digit
-                # operands to bf16 computes the same integer dots at the
-                # full bf16 MXU rate; the exact fp32 rerank below absorbs
-                # the <=1-ulp accumulation noise past 2^24.
-                xcb = xc8.astype(jnp.bfloat16)
-                qb2 = jnp.concatenate([hi8, lo8], axis=0) \
-                    .astype(jnp.bfloat16)                  # (2nq, d)
-                dot2 = jnp.einsum("qd,cd->qc", qb2, xcb,
-                                  preferred_element_type=jnp.float32)
-                dh = lax.slice(dot2, (0, 0), (nq, sc))
-                dl = lax.slice(dot2, (nq, 0), (2 * nq, sc))
-            else:
-                dh = jnp.einsum("qd,cd->qc", hi8, xc8,
-                                preferred_element_type=jnp.int32) \
-                    .astype(jnp.float32)
-                dl = jnp.einsum("qd,cd->qc", lo8, xc8,
-                                preferred_element_type=jnp.int32) \
-                    .astype(jnp.float32)
+            dh = jnp.einsum("qd,cd->qc", hi8, xc8,
+                            preferred_element_type=jnp.int32) \
+                .astype(jnp.float32)
+            dl = jnp.einsum("qd,cd->qc", lo8, xc8,
+                            preferred_element_type=jnp.int32) \
+                .astype(jnp.float32)
             rs_c = lax.dynamic_slice(spill_rs, (start,), (sc,))
             uc = (su28[:, None] * (128.0 * dh + dl)
                   + c08[:, None] + mu8[:, None] * rs_c[None, :])
@@ -476,12 +450,10 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
             valid = jnp.logical_and(valid, mc[None, :])
         score = dist if sim else -dist
         score = jnp.where(valid, score, _NEG_INF)
-        # Per-chunk selection via the window-max prefilter (exact): a raw
-        # lax.top_k over (nq, k_scan + sc) per chunk dominated the whole
-        # spill scan at the 8.8M x 1536 MARCO shape (~312 sequential
-        # bitonic top-ks); exact_topk replaces each with a 128-lane VPU
-        # reduction + two small top-ks, then the running merge is
-        # (nq, 2*k_scan) — tiny.
+        # Per-chunk selection via the window-max prefilter (exact):
+        # exact_topk replaces a top-k over (nq, k_scan + sc) with a
+        # 128-wide window max + two small top-ks, then the running merge
+        # is (nq, 2*k_scan) — tiny.
         ch_s, ch_i = exact_topk(score, min(k_scan, sc))
         cat_s = jnp.concatenate([best_s, ch_s], axis=1)
         cat_i = jnp.concatenate([best_i, start + ch_i], axis=1)
@@ -493,14 +465,13 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, centroids,
     best, sel = lax.fori_loop(0, n_chunks, body, init)
 
     if rerank:
-        # Fast-mode exact rerank (Flat/decoded rows, MXU metrics): the
-        # spill top-k merges against the Pallas padded scan, which scores
-        # fp32 — a bf16 spill side would mix score precisions.  Re-decode
-        # only the selected rows and re-score at HIGHEST.  Blocked over
-        # queries: the decoded (qb, k_scan, d) tile is bounded to ~128 MB
-        # — at the filtered-bench k'=1478 (binomial k at passrate 1%,
-        # go/main_test.go:104-128) an unblocked gather was a 1.7 GB fp32
-        # tile next to the 12 GiB marco payload (OOMed 2026-08-20).
+        # Fast-mode exact rerank (Flat/decoded rows, L2/IP): the spill
+        # top-k merges against the padded scan, whose results are fp32
+        # exact — a reduced-precision spill side would mix score
+        # precisions.  Re-decode only the selected rows and re-score at
+        # HIGHEST.  Blocked over queries: the decoded (qb, k_scan, d)
+        # tile is bounded to ~128 MB — the filtered bench's binomial k'
+        # (go/main_test.go:104-128) reaches k in the thousands.
         qb = rerank_qb or max(1, min(nq, (1 << 25) // max(k_scan * d, 1)))
         while nq % qb:
             qb -= 1
@@ -583,7 +554,7 @@ def ivf_sq_search(
     """IVF with scalar-quantized storage (faiss IndexIVFScalarQuantizer,
     by_residual=false as index_factory builds it): probed lists fetched as
     contiguous code-block slices (slice_probed_lists), decoded through the
-    SQ codec (ops/sq.py) into the same MXU distance tile as the Flat
+    SQ codec (ops/sq.py) into the same matmul distance tile as the Flat
     scan."""
     from .sq import sq_decode
 
@@ -671,10 +642,10 @@ def ivf_sq_int8_search(
     codec: str,
     lmax: int,
 ):
-    """Int8-MXU IVF scan over SQ8/SQ4/SQ6 storage (L2 / INNER_PRODUCT):
+    """Int8 IVF scan over SQ8/SQ4/SQ6 storage (L2 / INNER_PRODUCT):
     the gathered candidate tile stays packed uint8 (1 B or less per dim vs
     the decode path's fp32), unpacks to shifted int8 in-register, and the
-    batched dots run the MXU's int8 mode; the query side is the recentred
+    batched dots run in int8; the query side is the recentred
     two-digit quantization of sq_query_digits (15-bit effective — a
     single digit's noise swamps clustered corpora's distance gaps) and
     the final decode+fp32 rerank of the widened top-k restores exact

@@ -1,7 +1,7 @@
 """Lloyd's k-means in JAX — the training kernel behind IVF/PQ indexes.
 
-TPU-native replacement for faiss::Clustering as driven by ``Index::train``
-(src/faiss_extension.cpp:396,583): assignment is an MXU distance matmul +
+Device replacement for faiss::Clustering as driven by ``Index::train``
+(src/faiss_extension.cpp:396,583): assignment is a matmul distance matmul +
 argmin; the centroid update is a segment-sum — both batched, static-shaped,
 and shardable (assignment is embarrassingly parallel over points; the update
 reduces with ``psum`` across data shards, see parallel/sharded.py).
@@ -38,7 +38,7 @@ def assign_labels(x, centroids, precision=lax.Precision.DEFAULT):
 
 def centroid_update(x, labels, k, weights=None):
     """Per-cluster (sums (k, d), counts (k,)) — segment-sum formulated as a
-    one-hot matmul so it rides the MXU and shards cleanly."""
+    one-hot matmul so it rides the matmul and shards cleanly."""
     onehot = jax.nn.one_hot(labels, k, dtype=x.dtype)  # (n, k)
     if weights is not None:
         onehot = onehot * weights[:, None]

@@ -4,14 +4,14 @@ Equivalent of faiss::IndexPQ as reachable through the reference's factory
 strings (``PQm[xb]``, SearchParametersPQ defaults at
 src/faiss_extension.cpp:704-708).
 
-TPU-first design choice: FAISS computes asymmetric distances through a
-(M × ksub) lookup table walked per code byte — a scalar-gather pattern.  On
-TPU we *decode* each corpus chunk instead (codes → centroids via one gather)
-and push the decoded chunk through the same MXU distance tile as Flat
-search.  For L2/IP this is mathematically identical to LUT-ADC
-(‖q − dec(c)‖² = Σ_m ‖q_m − centroid_m‖²) while reading only the 8-bit codes
-from HBM — the compression still pays as bandwidth/capacity, and the FLOPs
-ride the systolic array instead of the VPU.
+Design choice: FAISS computes asymmetric distances through a
+(M × ksub) lookup table walked per code byte — a scalar-gather pattern.
+Here each corpus chunk is *decoded* instead (codes → centroids via one
+gather) and the decoded chunk goes through the same matmul distance tile
+as Flat search.  For L2/IP this is mathematically identical to LUT-ADC
+(‖q − dec(c)‖² = Σ_m ‖q_m − centroid_m‖²) while reading only the 8-bit
+codes from device memory — the compression still pays as
+bandwidth/capacity, and the FLOPs ride the matrix units.
 
 Training: per-subspace k-means, vmapped over the M subspaces (one batched
 kernel instead of M sequential fits).
@@ -74,19 +74,9 @@ def pq_encode(x, codebooks, *, precision=lax.Precision.DEFAULT):
 
 
 def pq_decode(codes, codebooks):
-    """Decode (c, m) uint8 codes → (c, d) fp32 reconstruction.
-
-    TPU path: one-hot × codebook contraction instead of a gather.  XLA
-    lowers take_along_axis to a serialized scalar-addressed gather on TPU
-    (the dominant cost of the whole IVFPQ search when profiled); a
-    (c, ksub)·(ksub, dsub) matmul per subspace rides the MXU instead.  The
-    one-hot row selects exactly one codebook entry, so with HIGHEST
-    precision the result matches the gather to fp32 rounding.  CPU keeps
-    the gather (ksub× fewer flops, and Eigen gathers are fine)."""
-    from ..utils.config import on_tpu
-
-    if on_tpu():
-        return pq_decode_onehot(codes, codebooks)
+    """Decode (c, m) uint8 codes → (c, d) fp32 reconstruction by gathering
+    each subspace's codeword (on an H100 the gather beats a one-hot
+    matmul decode by 30×; PERF.md)."""
     m, ksub, dsub = codebooks.shape
     c = codes.shape[0]
     gathered = jnp.take_along_axis(
@@ -95,37 +85,6 @@ def pq_decode(codes, codebooks):
         axis=2,
     )                                                       # (c, m, 1, dsub)
     return gathered.reshape(c, m * dsub)
-
-
-#: rows per one-hot block: bounds the (chunk, m, ksub) fp32 intermediate
-#: (16384·16·256·4 B = 256 MB worst case) — the one-hot is ksub× the size
-#: of the codes, so an unchunked decode of a large corpus would OOM HBM.
-_ONEHOT_CHUNK = 16_384
-
-
-def _pq_decode_onehot_block(codes, codebooks):
-    m, ksub, dsub = codebooks.shape
-    onehot = (codes.astype(jnp.int32)[:, :, None] ==
-              jnp.arange(ksub, dtype=jnp.int32)[None, None, :]
-              ).astype(jnp.float32)                          # (c, m, ksub)
-    dec = jnp.einsum("cmk,mkd->cmd", onehot, codebooks,
-                     precision=lax.Precision.HIGHEST,
-                     preferred_element_type=jnp.float32)
-    return dec.reshape(codes.shape[0], m * dsub)
-
-
-def pq_decode_onehot(codes, codebooks):
-    """One-hot matmul decode (the TPU path of pq_decode), blocked so the
-    one-hot intermediate stays bounded regardless of row count."""
-    m, ksub, dsub = codebooks.shape
-    c = codes.shape[0]
-    if c <= _ONEHOT_CHUNK:
-        return _pq_decode_onehot_block(codes, codebooks)
-    pad = (-c) % _ONEHOT_CHUNK
-    codes_p = jnp.pad(codes, ((0, pad), (0, 0)))
-    blocks = codes_p.reshape(-1, _ONEHOT_CHUNK, m)
-    dec = lax.map(lambda cb: _pq_decode_onehot_block(cb, codebooks), blocks)
-    return dec.reshape(-1, m * dsub)[:c]
 
 
 def codec_decode(codes, codebooks, codec: str = "pq"):
@@ -213,7 +172,7 @@ def pq_search(codes, nvalid, codebooks, xq, mask, metric_arg, *, k, metric,
 # rank-1 term on top of the standard distance tile.  The update step has a
 # closed form per centroid:  [n_j I + (eta-1) * sum x_hat x_hat^T] c_j =
 # eta * sum x  (because x_hat x_hat^T x = x), a (dsub, dsub) solve vmapped
-# over the ksub clusters — all MXU work.  eta > 1 biases codebooks toward
+# over the ksub clusters — all matmul work.  eta > 1 biases codebooks toward
 # score accuracy; eta = 1 reduces exactly to k-means.
 
 def _unit(v):

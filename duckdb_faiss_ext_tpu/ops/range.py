@@ -4,8 +4,8 @@ Not reachable through the reference's SQL surface (its 12 functions cover
 k-NN only) but part of the FAISS capability set behind it — provided for
 completeness as a Python-level API (api.faiss_range_search).
 
-TPU design: result sizes are data-dependent, which XLA cannot shape.  The
-split is: device computes dense distance tiles (the same MXU pairwise tile
+Device design: result sizes are data-dependent, which XLA cannot shape.  The
+split is: device computes dense distance tiles (the same matmul pairwise tile
 as k-NN search, chunked over the corpus); the host thresholds each fetched
 tile and builds the CSR (lims, labels, distances) result.  Exact for Flat /
 SQ; IVF scans the probed lists only (same contract as

@@ -6,8 +6,8 @@ verbatim, src/faiss_extension.cpp:154-155).  Unlike PQ's disjoint
 subspaces, every stage holds full-dimension codewords and the
 reconstruction is their SUM: dec(c) = Σ_m cb[m][c_m].
 
-TPU-first design mirrors ops/pq.py: no lookup tables — corpus chunks are
-decoded on the fly (one-hot × codebook contractions on the MXU, summed
+The design mirrors ops/pq.py: no lookup tables — corpus chunks are
+decoded on the fly (one-hot × codebook contractions on the matmul, summed
 over stages) and pushed through the shared pairwise distance tile, so the
 8-bit codes are all that crosses HBM.  Encoding is a batched beam search
 (beam=1 ⇒ greedy): each stage scores every candidate residual against the
@@ -46,7 +46,7 @@ def rq_train(x, m: int, ksub: int, niter: int = 25, seed: int = DEFAULT_SEED,
 
 def _onehot_decode_stage(codes_m, cb):
     """codes_m (c,) int32, cb (ksub, d) → (c, d) selected codewords via a
-    one-hot matmul (TPU: rides the MXU; exact at HIGHEST precision)."""
+    one-hot matmul (exact at HIGHEST precision)."""
     ksub = cb.shape[0]
     onehot = (codes_m[:, None] ==
               jnp.arange(ksub, dtype=jnp.int32)[None, :]).astype(jnp.float32)
@@ -54,40 +54,15 @@ def _onehot_decode_stage(codes_m, cb):
                    preferred_element_type=jnp.float32)
 
 
-#: rows per decode block — bounds the (c, ksub) one-hot intermediate.
-_ONEHOT_CHUNK = 16_384
-
-
 def rq_decode(codes, codebooks):
-    """Decode (c, m) uint8 codes → (c, d) fp32: sum of stage codewords.
-
-    TPU path: per-stage one-hot matmuls (gathers serialize on TPU — see
-    ops/pq.pq_decode); CPU keeps the cheap gather."""
-    from ..utils.config import on_tpu
-
+    """Decode (c, m) uint8 codes → (c, d) fp32: sum of stage codewords,
+    each gathered from its stage codebook."""
     m, ksub, d = codebooks.shape
-    if not on_tpu():
-        idx = codes.astype(jnp.int32)                     # (c, m)
-        gathered = jnp.take_along_axis(
-            codebooks[None, :, :, :],                     # (1, m, ksub, d)
-            idx[:, :, None, None], axis=2)                # (c, m, 1, d)
-        return gathered.reshape(codes.shape[0], m, d).sum(axis=1)
-
-    def block(codes_b):
-        out = jnp.zeros((codes_b.shape[0], d), jnp.float32)
-        for stage in range(m):
-            out = out + _onehot_decode_stage(
-                codes_b[:, stage].astype(jnp.int32), codebooks[stage])
-        return out
-
-    c = codes.shape[0]
-    if c <= _ONEHOT_CHUNK:
-        return block(codes)
-    pad = (-c) % _ONEHOT_CHUNK
-    codes_p = jnp.pad(codes, ((0, pad), (0, 0)))
-    blocks = codes_p.reshape(-1, _ONEHOT_CHUNK, m)
-    dec = lax.map(block, blocks)
-    return dec.reshape(-1, d)[:c]
+    idx = codes.astype(jnp.int32)                         # (c, m)
+    gathered = jnp.take_along_axis(
+        codebooks[None, :, :, :],                         # (1, m, ksub, d)
+        idx[:, :, None, None], axis=2)                    # (c, m, 1, d)
+    return gathered.reshape(codes.shape[0], m, d).sum(axis=1)
 
 
 @functools.partial(jax.jit, static_argnames=("m", "beam", "precision"))

@@ -1,6 +1,6 @@
 """Selection-vector selectors for filtered search.
 
-TPU-native equivalents of ``faiss::IDSelectorBitmap`` / ``IDSelectorBatch``
+Device equivalents of ``faiss::IDSelectorBitmap`` / ``IDSelectorBatch``
 (src/faiss_extension.cpp:959,1008).  FAISS consults the selector per candidate
 inside its scan loops; here a selector resolves to a boolean row mask that the
 search kernel fuses into the distance scan (masked lanes → sentinel score), so
@@ -87,13 +87,12 @@ class SetSelector(Selector):
 # --- device-side mask construction ----------------------------------------
 # The host path unpacks the bitmap over every stored label (O(n)),
 # scatters into the (nlist, lmax) layout (O(nlist*lmax)) and uploads
-# ~10 MB of int8 mask — ~75 ms/call at the 8.8M marco shape.  The device
+# ~10 MB of int8 mask at 8.8M rows, per call.  The device
 # path uploads only the PACKED bitmap (n/8 bytes, ~1 MB) or sorted id
 # set once per selector and computes the per-(list, slot) mask with a
 # jitted gather+bit-test over the already-device-resident row_pos —
-# per-call host work drops to O(1) after the first use (VERDICT r4 ask
-# #4; the reference's own path is O(n) per call,
-# src/faiss_extension.cpp:927-972).
+# per-call host work drops to O(1) after the first use (the reference's
+# own path is O(n) per call, src/faiss_extension.cpp:927-972).
 
 def _device_bitmap_mask(bits, rp, labels, nbits):
     import jax.numpy as jnp

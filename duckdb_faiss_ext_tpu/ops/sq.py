@@ -4,7 +4,7 @@ Equivalent of faiss::IndexScalarQuantizer as reachable through factory
 strings (``SQ8``, ``SQ4``, ``SQ6``, ``SQfp16``).  The quantized codecs train
 per-dimension [vmin, vmax] ranges (FAISS's RS_minmax default) and store
 8/4/6 bits per dimension; search decodes chunks on the fly and rides the
-same MXU distance tile as Flat — the same TPU-first decode-don't-LUT design
+same matmul distance tile as Flat — the same decode-don't-LUT design
 as ops/pq.py, at 4×/8×/5.3× (SQ8/SQ4/SQ6) or 2× (fp16) less HBM traffic
 than fp32.
 
@@ -32,7 +32,7 @@ from .flat_search import _NEG_INF, SIMILARITY_METRICS, exact_topk
 SQ_LEVELS = {"sq8": 255, "sq4": 15, "sq6": 63}
 
 #: training-free float codecs (stored as raw half-width rows);
-#: bf16 is the MXU-native storage type.
+#: bf16 is the matmul storage type.
 FLOAT_CODECS = ("fp16", "bf16")
 
 
@@ -113,9 +113,8 @@ def _interleave_lanes(parts, step: int):
     """[p0..p_{step-1}] each (c, m) → (c, step*m) with part x at lanes
     x::step, via interior-dilated pads OR'd together.  The obvious
     ``jnp.stack(parts, -1).reshape`` materialises a (c, m, step) minor-
-    step intermediate that TPU tiling pads to 128 lanes (32-64x) — at
-    the 8.8M graph walk's per-iteration decode that was a multi-GB temp
-    and a compile OOM (2026-08-20)."""
+    step intermediate that a tiled layout can pad many times over — at
+    an 8.8M-row graph walk's per-iteration decode, a multi-GB temp."""
     out = None
     for x, p in enumerate(parts):
         q = jax.lax.pad(p, p.dtype.type(0),
@@ -192,7 +191,7 @@ def sq_search(codes, nvalid, vmin, scale, xq, mask, metric_arg, *, k, metric,
     return lax.fori_loop(0, cap // chunk, body, init)
 
 
-# --- int8 MXU scan (SQ8 / SQ4 / SQ6) ---------------------------------------
+# --- int8 matmul scan (SQ8 / SQ4 / SQ6) -----------------------------------
 
 #: code shift per codec: c' = c − shift keeps codes in int8 range
 SQ_INT8_SHIFT = {"sq8": 128, "sq4": 8, "sq6": 32}
@@ -208,7 +207,7 @@ def sq_query_digits(u):
     misses it (the round-2 clustered-data regression).  Two digits drive
     the error down 128×: recentre u by its per-query mean μ (shrinks the
     digit scale), then ũ = u − μ ≈ su2·(128·hi + lo) with hi, lo int8
-    (lo ∈ [−64, 64]), so ũ·c ≈ su2·(128·(hi·c) + (lo·c)) — two int8 MXU
+    (lo ∈ [−64, 64]), so ũ·c ≈ su2·(128·(hi·c) + (lo·c)) — two int8
     dots over the same code bytes.  The μ·Σc cross-term is exact via the
     per-row code sum (sq_row_sums).
 
@@ -265,7 +264,7 @@ def sq_unpack_host(packed: np.ndarray, d: int, codec: str) -> np.ndarray:
 
 def sq_unpack_i8(packed, d: int, codec: str):
     """Device unpack: packed uint8 chunk → (chunk, d) int8 shifted codes
-    (c − SQ_INT8_SHIFT[codec]) for the int8 MXU dot."""
+    (c − SQ_INT8_SHIFT[codec]) for the int8 matmul dot."""
     if codec == "sq8":
         return (packed.astype(jnp.int16) - 128).astype(jnp.int8)
     if codec == "sq4":
@@ -292,7 +291,7 @@ def sq_int8_search(codes, row_norm, row_sum, nvalid, vmin, scale, xq, mask,
 
     Reads the SAME packed uint8 code buffer as the decode path (no second
     corpus copy) and unpacks each chunk to shifted int8 in-register — the
-    MXU runs its int8 mode and no fp32/bf16 decode intermediate ever
+    matmul runs its int8 mode and no fp32/bf16 decode intermediate ever
     materializes.  Codes are EXACT in the int8 dots (int32 accumulation);
     the query side uses the two-digit recentred quantization of
     sq_query_digits (15-bit effective — a single digit's noise swamps the

@@ -2,7 +2,7 @@
 cross-host search driver.
 
 The reference is strictly single-process (SURVEY.md §2.3: no distributed
-backend).  This module is the scale-out tier the TPU rebuild adds:
+backend).  This module is the scale-out tier the rebuild adds:
 
 * ``init_multihost`` — thin wrapper over ``jax.distributed.initialize``;
 * ``hash_partition`` — deterministic row→host assignment so every host

@@ -1,7 +1,7 @@
 """Index placement: the faiss_to_gpu analogue.
 
 The reference clones a CPU index wholesale onto one GPU
-(faiss::gpu::index_cpu_to_gpu, src/gpu/gpu.cpp:44-48).  The TPU-native
+(faiss::gpu::index_cpu_to_gpu, src/gpu/gpu.cpp:44-48).  The device-native
 equivalent of "move to the accelerator" is re-sharding the index's device
 arrays over a mesh: rows of the corpus partitioned across devices with a
 NamedSharding, so subsequent searches run as sharded computations with a

@@ -1,7 +1,7 @@
 """Sharded search and training over a device mesh.
 
 The reference's scaling story is OpenMP threads + BLAS on one node
-(SURVEY.md §2.3); the TPU rebuild scales by partitioning the corpus across
+(SURVEY.md §2.3); the rebuild scales by partitioning the corpus across
 devices and merging per-shard top-k results with XLA collectives over
 ICI/DCN:
 
@@ -210,7 +210,7 @@ def sharded_pack_fn(mesh: Mesh, kind: str):
         # Chunked like ops/graph._pack_build: an unchunked flat gather
         # materialises a (rows_local*deg, w) intermediate whose minor dim
         # is lane-padded (2x for int4 widths < 128) — multi-GB transient
-        # at large per-shard corpora (ADVICE r4).  lax.map keeps the
+        # at large per-shard corpora.  lax.map keeps the
         # per-block gather <= ~32M elements.
         n, deg = g.shape
         w = codes.shape[1]
@@ -489,7 +489,7 @@ def sharded_ivf_search_fn(mesh: Mesh, *, k: int, nprobe: int, metric: str,
     (nlist, lmax, w) layout, nlist divisible by the shard count), queries
     sharded over ``batch``, centroids replicated.
 
-    Each device computes the coarse top-nprobe (replicated — one small MXU
+    Each device computes the coarse top-nprobe (replicated — one small matmul
     tile), scans only the probed lists it owns, and the per-shard top-k
     candidates are merged with an all_gather over ICI exactly like the flat
     path.  Exact: every probed list is scanned by exactly one shard.

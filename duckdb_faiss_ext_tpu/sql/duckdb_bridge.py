@@ -8,7 +8,7 @@ The reference is a DuckDB loadable extension; its clients issue SQL like
 
 (/root/reference/examples/ai.py, go/helper.go:9-19).  This module registers
 the same surface on a real ``duckdb.connect()`` connection so those client
-patterns run against the TPU engine, with one structural difference: the
+patterns run against the device engine, with one structural difference: the
 DuckDB Python API exposes scalar functions only (no table functions), so
 the CALL forms become scalar invocations driven by a query —
 

@@ -5,7 +5,7 @@ Reachable in the reference through factory prefixes (``PCA64,...``,
 src/faiss_extension.cpp:154-155).  Each transform maps (n, d_in) →
 (n, d_out) before the wrapped index sees the data (models/pretransform.py).
 
-TPU design: transforms are single matmuls (MXU) applied inside the ingest
+Device design: transforms are single matmuls applied inside the ingest
 and query paths; training is eigendecomposition (PCA) or the alternating
 rotation/PQ procrustes loop (OPQ) — both via jnp.linalg on device.
 """

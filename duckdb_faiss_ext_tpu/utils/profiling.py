@@ -1,7 +1,7 @@
 """Tracing, timing, and engine statistics.
 
 The reference has no tracing/metrics at all (SURVEY.md §5: benchmarks time
-whole queries only); this is the TPU rebuild's observability tier:
+whole queries only); this is the rebuild's observability tier:
 
 * ``trace(path)`` — context manager around ``jax.profiler`` emitting a
   TensorBoard-loadable device trace of everything inside;

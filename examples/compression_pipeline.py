@@ -9,7 +9,7 @@ Demonstrates the full factory grammar on one workload:
     OPQ16,IVF64,PQ16          — + learned rotation (better codes)
     OPQ16,IVF64,PQ16,RFlat    — + exact re-rank of the candidates
 
-Run: python examples/compression_pipeline.py   (CPU or TPU)
+Run: python examples/compression_pipeline.py   (CPU or GPU)
 """
 
 import sys

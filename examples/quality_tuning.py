@@ -14,7 +14,7 @@ Compares, against the exact Flat oracle at a fixed candidate budget:
     HNSW32 (graph walk)              — CAGRA-style batched graph ANN
                                        (efSearch = candidate pool)
 
-Run: python examples/quality_tuning.py   (CPU or TPU)
+Run: python examples/quality_tuning.py   (CPU or GPU)
 """
 
 import sys

@@ -2,7 +2,7 @@
 """Serving-mode tour: precision, reranks, the int8 SQ scan, batched
 serving, and autotuning — the knobs that trade throughput for exactness.
 
-    python examples/serving_modes.py      (CPU or TPU)
+    python examples/serving_modes.py      (CPU or GPU)
 """
 
 import sys

@@ -1,6 +1,6 @@
 """Device-resident IVF ingest (models/ivf_device.py): parity vs the host
 ingest path on the same data, spill handling, selectors, save/load, and the
-mode-mixing guards.  Runs on CPU with the Pallas interpreter."""
+mode-mixing guards."""
 
 import numpy as np
 import pytest
@@ -51,8 +51,8 @@ def test_device_ingest_matches_host_path(storage, metric):
         rh = dfx.faiss_search("h", k, xq, params)
         rd = dfx.faiss_search("dev", k, xq, params)
         # Same trained state (same seed/data) -> same lists; the device
-        # path serves via the pallas interpreter off-TPU, the host path
-        # via the XLA scan — labels must agree and distances match fp32.
+        # path serves via the padded-layout scan, the host path via the
+        # sorted-layout scan — labels must agree and distances match fp32.
         assert (rh["label"] == rd["label"]).mean() > 0.98
         same = rh["label"] == rd["label"]
         np.testing.assert_allclose(rd["distance"][same],
@@ -261,7 +261,6 @@ def test_spill_int8_scoring_matches_decode(catalog):
     assert idx._dr.spill_n > 1000
     xq = xb[:64]
     dfx.set_precision("fast")
-    dfx.set_kernel_mode("pallas")
     try:
         dfx.set_sq_dot("int8")
         r8 = dfx.faiss_search("sp8", 10, xq, {"nprobe": str(nlist)},
@@ -271,7 +270,6 @@ def test_spill_int8_scoring_matches_decode(catalog):
                               catalog=catalog)
     finally:
         dfx.set_sq_dot("auto")
-        dfx.set_kernel_mode("auto")
         dfx.set_precision("parity")
     assert (r8["label"][:, 0] == np.arange(64)).all()
     np.testing.assert_allclose(np.sort(r8["distance"], 1),
@@ -281,9 +279,8 @@ def test_spill_int8_scoring_matches_decode(catalog):
 
 def test_spill_rerank_query_blocking(catalog):
     """The spill rerank's query-blocked gather (rerank_qb) returns the
-    same results as the unblocked path — regression for the k'=1478
-    filtered-bench OOM (the (nq, k_scan, d) decoded tile next to the
-    marco payload)."""
+    same results as the unblocked path — the (nq, k_scan, d) decoded tile
+    is bounded for the filtered bench's k in the thousands."""
     import jax
     import jax.numpy as jnp_
 
@@ -319,8 +316,8 @@ def test_spill_rerank_query_blocking(catalog):
 
 def test_spill_membership_cmp_matches_gather(catalog):
     """The compare-loop probed-list membership (nprobe fused equality
-    passes, no gather/transpose — the round-3 spill-scan hot-path fix)
-    selects exactly the rows the one-hot gather path selects."""
+    passes, no gather/transpose) selects exactly the rows the one-hot
+    gather path selects."""
     import jax
     import jax.numpy as jnp_
 
@@ -355,60 +352,3 @@ def test_spill_membership_cmp_matches_gather(catalog):
         np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
         np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
                                    rtol=1e-6, atol=1e-6)
-
-def test_pallas_spill_path_engages_and_agrees(catalog):
-    """Forced config.spill_impl='pallas' routes the spill through the
-    fused Pallas dense scan; with the exact full-window rerank the
-    results match the XLA spill scan (boundary fp-ties aside)."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.catalog import Catalog
-    from duckdb_faiss_ext_tpu.models.ivf import IVFIndex
-    from duckdb_faiss_ext_tpu.utils.config import config
-
-    cat = Catalog()
-    rng = np.random.default_rng(41)
-    n, d, nq, k = 30000, 32, 64, 10
-    # Mildly skewed corpus: a few hot lists exceed the capped lmax (a
-    # small spill) while total spill stays under SPILL_FRACTION_MAX.
-    centers = rng.standard_normal((4, d)).astype(np.float32)
-    hot = (centers[rng.integers(0, 4, n // 5)]
-           + 0.05 * rng.standard_normal((n // 5, d)).astype(np.float32))
-    xb = np.concatenate(
-        [rng.standard_normal((n - n // 5, d)).astype(np.float32), hot])
-    xq = xb[:nq] + 0.01 * rng.standard_normal((nq, d)).astype(np.float32)
-    dfx.faiss_create("ps", d, "IVF32,SQ8", metric_type="L2", catalog=cat)
-    dfx.faiss_add(xb, "ps", catalog=cat)
-    idx = cat.get("ps").index
-    dfx.set_kernel_mode("pallas")
-    dfx.set_precision("fast")
-    saved_budget = IVFIndex.PALLAS_LAYOUT_BUDGET_BYTES
-    IVFIndex.PALLAS_LAYOUT_BUDGET_BYTES = 32 * d * 1500  # cap lmax 1024
-    try:
-        idx._pallas_plan_cache = None
-        idx._device_pallas = None
-        plan = idx._pallas_plan()
-        assert plan is not None and plan[0] == "spill", plan
-        config.spill_impl = "xla"
-        r1 = dfx.faiss_search("ps", k, xq, {"nprobe": "8"}, catalog=cat)
-        rk1 = dfx.faiss_search("ps", 200, xq, {"nprobe": "8"},
-                               catalog=cat)
-        config.spill_impl = "pallas"
-        r2 = dfx.faiss_search("ps", k, xq, {"nprobe": "8"}, catalog=cat)
-        assert idx._last_scan_path  # spill leg ran under pallas impl
-        # k > 128: the exact full-window rerank would decode k*128 rows
-        # per query — the serve gate must route huge-k spills to the
-        # exact XLA scan even when pallas is forced (the 47 GB filtered
-        # k'=1874 failure, 2026-08-20).
-        rk2 = dfx.faiss_search("ps", 200, xq, {"nprobe": "8"},
-                               catalog=cat)
-    finally:
-        config.spill_impl = "auto"
-        IVFIndex.PALLAS_LAYOUT_BUDGET_BYTES = saved_budget
-        dfx.set_kernel_mode("auto")
-        dfx.set_precision("parity")
-    agree = np.mean([len(set(a) & set(b)) / k
-                     for a, b in zip(r1["label"], r2["label"])])
-    assert agree >= 0.99, agree
-    agree_k = np.mean([len(set(a) & set(b)) / 200
-                       for a, b in zip(rk1["label"], rk2["label"])])
-    assert agree_k >= 0.99, agree_k

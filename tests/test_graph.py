@@ -2,7 +2,7 @@
 default HNSW/NSG graph regime (models/hnsw.py).
 
 The reference's HNSW surface is src/faiss_extension.cpp:133-141 (create,
-efConstruction) and :691-702 (efSearch).  These tests cover the TPU-native
+efConstruction) and :691-702 (efSearch).  These tests cover the device-native
 graph-algorithm execution of that surface: exact-kNN build + reverse-edge
 augmentation, fixed-shape greedy walk, selector semantics (traverse
 unfiltered, collect filtered), tail merge, and persistence of the adjacency.
@@ -647,8 +647,7 @@ def test_chunked_build_paths_match_monolithic():
     """clustered_knn_scan_chunked / nn_descent_round_chunked are exact
     host-chunked equivalents of the single-dispatch ops (the chunking
     exists because one fori over 32k cells / 550k row-blocks is a
-    single ~30-min XLA dispatch at the 8.8M marco build — the round-3
-    TPU-worker crash; tools/marco_graph.py)."""
+    single ~30-min XLA dispatch at an 8.8M-row build)."""
     import jax
     import jax.numpy as jnp
 

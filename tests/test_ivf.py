@@ -170,43 +170,6 @@ def test_ivfpq_recall_and_roundtrip(catalog, tmp_path):
     np.testing.assert_array_equal(rp["label"], rp2["label"])
 
 
-def test_ivf_pallas_scan_matches_xla(catalog):
-    """Pallas list-scan kernel (interpret mode on CPU) vs the gather path."""
-    d, n, nq, k = 16, 1500, 8, 7
-    xb = _clustered(n, d, ncl=8)
-    xq = _clustered(nq, d, ncl=8)
-    ids = np.arange(n) + 50
-    dfx.faiss_create("pvx", d, "IDMap,IVF8,Flat", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add((ids, xb), "pvx", catalog=catalog)
-
-    ref = dfx.faiss_search("pvx", k, xq, {"nprobe": "4"}, catalog=catalog)
-    dfx.set_kernel_mode("pallas")
-    try:
-        got = dfx.faiss_search("pvx", k, xq, {"nprobe": "4"},
-                               catalog=catalog)
-    finally:
-        dfx.set_kernel_mode("auto")
-    np.testing.assert_allclose(got["distance"], ref["distance"],
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_array_equal(got["label"], ref["label"])
-
-    # Filtered variant through the padded-mask path.
-    db = dfx.Database()
-    db.register("t", {"id": ids})
-    reff = dfx.faiss_search_filter("pvx", k, xq, "id%2==0", "id", "t",
-                                   {"nprobe": "8"}, catalog=catalog,
-                                   database=db)
-    dfx.set_kernel_mode("pallas")
-    try:
-        gotf = dfx.faiss_search_filter("pvx", k, xq, "id%2==0", "id", "t",
-                                       {"nprobe": "8"}, catalog=catalog,
-                                       database=db)
-    finally:
-        dfx.set_kernel_mode("auto")
-    np.testing.assert_array_equal(gotf["label"], reff["label"])
-
-
 def test_ivf_elementwise_metric(catalog):
     """IVF with a non-MXU metric goes through the gather path for all nine
     metrics (L1 here) and matches the flat oracle at full probe."""
@@ -237,81 +200,6 @@ def test_errors_on_missing_index(catalog):
         with pytest.raises(dfx.InvalidInputError,
                            match="Could not find index ghost."):
             fn()
-
-
-def test_ivfpq_pallas_matches_gather(catalog):
-    """IVFPQ through the Pallas compaction kernel (interpret on CPU) equals
-    the XLA gather path."""
-    d, n, nq, k = 16, 2000, 8, 6
-    xb = _clustered(n, d, ncl=8)
-    xq = _clustered(nq, d, ncl=8)
-    dfx.faiss_create("pqp", d, "IVF8,PQ4", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add(xb, "pqp", catalog=catalog)
-    ref = dfx.faiss_search("pqp", k, xq, {"nprobe": "4"}, catalog=catalog)
-    dfx.set_kernel_mode("pallas")
-    try:
-        got = dfx.faiss_search("pqp", k, xq, {"nprobe": "4"},
-                               catalog=catalog)
-    finally:
-        dfx.set_kernel_mode("auto")
-    np.testing.assert_allclose(got["distance"], ref["distance"],
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(got["label"], ref["label"])
-
-
-def test_ivf_spill_layout_parity(catalog):
-    """Capped-lmax + spill-region plan returns the same results as the
-    uncapped gather path on heavily skewed lists (round-2 queue item 4)."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.models.ivf import IVFIndex
-
-    rng = np.random.default_rng(44)
-    d, n = 16, 4000
-    # Skew: 70% of points near one center → one giant list.
-    centers = rng.standard_normal((8, d)).astype(np.float32) * 5
-    which = np.where(rng.random(n) < 0.7, 0, rng.integers(0, 8, n))
-    xb = centers[which] + rng.standard_normal((n, d)).astype(np.float32) * .3
-    xq = xb[:8]
-
-    dfx.faiss_create("spill", d, "IVF8,Flat", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add(xb, "spill", catalog=catalog)
-    idx = catalog.get("spill").index
-    assert isinstance(idx, IVFIndex)
-
-    # Reference: XLA gather path (kernel_mode auto on CPU).
-    ref = dfx.faiss_search("spill", 10, xq, {"nprobe": "8"}, catalog=catalog)
-
-    # Force the spill plan: budget so small the giant list must be capped.
-    idx.PALLAS_LAYOUT_BUDGET_BYTES = 8 * 256 * d * 4   # lmax cap = 256
-    idx.SPILL_FRACTION_MAX = 1.0
-    idx._pallas_plan_cache = None
-    idx._device_pallas = None
-    dfx.set_kernel_mode("pallas")
-    try:
-        plan = idx._pallas_plan()
-        assert plan is not None and plan[0] == "spill"
-        got = dfx.faiss_search("spill", 10, xq, {"nprobe": "8"},
-                               catalog=catalog)
-        assert idx._device_spill is not None
-    finally:
-        dfx.set_kernel_mode("auto")
-    np.testing.assert_array_equal(ref["label"], got["label"])
-    np.testing.assert_allclose(ref["distance"], got["distance"],
-                               rtol=2e-3, atol=2e-3)
-
-    # Filtered search through the spill path too.
-    sel = dfx.SetSelector(np.arange(0, n, 2, dtype=np.int64))
-    ref_f = dfx.faiss_search("spill", 10, xq, {"nprobe": "8"},
-                             catalog=catalog, selector=sel)
-    dfx.set_kernel_mode("pallas")
-    try:
-        got_f = dfx.faiss_search("spill", 10, xq, {"nprobe": "8"},
-                                 catalog=catalog, selector=sel)
-    finally:
-        dfx.set_kernel_mode("auto")
-    np.testing.assert_array_equal(ref_f["label"], got_f["label"])
 
 
 def test_ivf_sq_encodings(catalog):
@@ -386,52 +274,6 @@ def test_idmap2_ivfpq_reconstruct(catalog):
     # PQ reconstruction error is bounded, not exact
     assert np.linalg.norm(rec - xb[7]) < 0.5 * np.linalg.norm(xb[7])
 
-
-def test_ivf_spill_k_beyond_capped_layout(catalog):
-    """Regression (code review): k larger than nprobe*capped_lmax must
-    still return the spill region's valid neighbors, not truncate."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.models.ivf import IVFIndex
-
-    rng = np.random.default_rng(70)
-    d, n = 8, 4000
-    centers = rng.standard_normal((8, d)).astype(np.float32) * 5
-    which = np.where(rng.random(n) < 0.7, 0, rng.integers(0, 8, n))
-    xb = centers[which] + rng.standard_normal((n, d)).astype(np.float32) * .3
-    dfx.faiss_create("spk", d, "IVF8,Flat", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add(xb, "spk", catalog=catalog)
-    idx = catalog.get("spk").index
-    assert isinstance(idx, IVFIndex)
-    k = 400
-    ref = dfx.faiss_search("spk", k, xb[:4], {"nprobe": "1"},
-                           catalog=catalog)
-    idx.PALLAS_LAYOUT_BUDGET_BYTES = 8 * 256 * d * 4   # cap lmax at 256
-    idx.SPILL_FRACTION_MAX = 1.0
-    idx._pallas_plan_cache = None
-    idx._device_pallas = None
-    dfx.set_kernel_mode("pallas")
-    try:
-        assert idx._pallas_plan()[0] == "spill"
-        got = dfx.faiss_search("spk", k, xb[:4], {"nprobe": "1"},
-                               catalog=catalog)
-    finally:
-        dfx.set_kernel_mode("auto")
-    # Same neighbor sets (distance summation order differs by ~1e-6 between
-    # the padded kernel and the dense spill tile, so near-ties may swap
-    # ranks); valid counts must match exactly — the old bug truncated to
-    # nprobe*capped_lmax valid slots.
-    for q in range(4):
-        rv = ref["label"][q][ref["label"][q] >= 0]
-        gv = got["label"][q][got["label"][q] >= 0]
-        assert len(rv) == len(gv)
-        assert set(rv.tolist()) == set(gv.tolist())
-    np.testing.assert_allclose(np.sort(got["distance"], axis=1),
-                               np.sort(ref["distance"], axis=1),
-                               rtol=1e-4, atol=1e-4)
-
-
-# --- IMI (product / multi-index coarse quantizer) -------------------------
 
 def _imi_clustered(n, d, ncent=16, seed=11, spread=0.3):
     rng = np.random.default_rng(seed)
@@ -693,83 +535,6 @@ def test_soar_aniso_beam_persist_before_training(catalog, tmp_path):
                                 catalog=catalog)
 
 
-@pytest.mark.parametrize("codec,metric", [
-    ("SQ6", "L2"), ("SQ6", "INNER_PRODUCT"),
-    ("SQ8", "L2"), ("SQ4", "INNER_PRODUCT"),
-])
-def test_ivf_sq_pallas_matches_gather(catalog, codec, metric):
-    """The fused int8 Pallas list-scan (interpret on CPU) must return the
-    same labels/distances as the XLA gather scan — including SQ6's
-    plane-major payload (four 6-bit planes scored in-kernel)."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.utils.config import set_sq_dot
-
-    rng = np.random.default_rng(77)
-    d, n, k = 24, 3000, 6           # d%4 != 0 exercises sq6 plane padding
-    xb = rng.standard_normal((n, d)).astype(np.float32)
-    xq = rng.standard_normal((16, d)).astype(np.float32)
-    name = f"sqpal{codec}{metric}"
-    dfx.faiss_create(name, d, f"IVF8,{codec}", metric_type=metric,
-                     catalog=catalog)
-    dfx.faiss_add(xb, name, catalog=catalog)
-    set_sq_dot("int8")              # both paths on the int8 scan
-    try:
-        ref = dfx.faiss_search(name, k, xq, {"nprobe": "8"},
-                               catalog=catalog)
-        dfx.set_kernel_mode("pallas")
-        got = dfx.faiss_search(name, k, xq, {"nprobe": "8"},
-                               catalog=catalog)
-    finally:
-        dfx.set_kernel_mode("auto")
-        set_sq_dot("auto")
-    # Both end in the same fp32 decode-rerank: labels must agree
-    # (rare ties aside) and distances of agreeing labels match fp32.
-    agree = (ref["label"] == got["label"]).mean()
-    assert agree > 0.99, agree
-    same = ref["label"] == got["label"]
-    np.testing.assert_allclose(got["distance"][same],
-                               ref["distance"][same], rtol=2e-5, atol=2e-5)
-
-
-def test_ivf_sq6_pallas_spill(catalog):
-    """SQ6 plane-major payload under a capped-lmax spill plan."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.models.ivf import IVFIndex
-    from duckdb_faiss_ext_tpu.utils.config import set_sq_dot
-
-    rng = np.random.default_rng(78)
-    d, n = 16, 3000
-    centers = rng.standard_normal((8, d)).astype(np.float32) * 5
-    which = np.where(rng.random(n) < 0.6, 0, rng.integers(0, 8, n))
-    xb = centers[which] + rng.standard_normal((n, d)).astype(np.float32) * .3
-    xq = xb[:8]
-    dfx.faiss_create("sq6sp", d, "IVF8,SQ6", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add(xb, "sq6sp", catalog=catalog)
-    idx = catalog.get("sq6sp").index
-    set_sq_dot("int8")
-    try:
-        ref = dfx.faiss_search("sq6sp", 10, xq, {"nprobe": "8"},
-                               catalog=catalog)
-        idx.PALLAS_LAYOUT_BUDGET_BYTES = 8 * 256 * 12   # lmax cap = 256
-        idx.SPILL_FRACTION_MAX = 1.0
-        idx._pallas_plan_cache = None
-        idx._device_pallas = None
-        dfx.set_kernel_mode("pallas")
-        plan = idx._pallas_plan()
-        assert plan is not None and plan[0] == "spill"
-        got = dfx.faiss_search("sq6sp", 10, xq, {"nprobe": "8"},
-                               catalog=catalog)
-        assert idx._device_spill is not None
-    finally:
-        dfx.set_kernel_mode("auto")
-        set_sq_dot("auto")
-        del idx.PALLAS_LAYOUT_BUDGET_BYTES, idx.SPILL_FRACTION_MAX
-    np.testing.assert_array_equal(ref["label"], got["label"])
-    np.testing.assert_allclose(ref["distance"], got["distance"],
-                               rtol=2e-4, atol=2e-4)
-
-
 @pytest.mark.parametrize("enc", ["SQ8", "SQ6", "SQ4"])
 def test_ivf_sq_int8_accurate_on_clustered_data(catalog, enc):
     """Round-2 regression: a single-digit int8 query quantization's noise
@@ -815,49 +580,11 @@ def test_ivf_sq_int8_accurate_on_clustered_data(catalog, enc):
                                rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("codec", ["SQ4", "SQ6"])
-def test_ivf_sq_pallas_multitile_lmax(catalog, codec):
-    """lmax > 512 exercises the kernel's sub-tiled nibble unpack (the
-    whole-block i32 widen blew the 16 MB scoped-vmem limit at the
-    8.8M×1536 marco shape, lmax 3584 — same tile count reproduced here)."""
-    import duckdb_faiss_ext_tpu as dfx
-    from duckdb_faiss_ext_tpu.utils.config import set_sq_dot
-
-    rng = np.random.default_rng(79)
-    d, n, k = 24, 14000, 8          # 4 lists → lmax 3584: 7 sub-tiles
-    xb = rng.standard_normal((n, d)).astype(np.float32)
-    xq = rng.standard_normal((8, d)).astype(np.float32)
-    name = f"sqtile{codec}"
-    dfx.faiss_create(name, d, f"IVF4,{codec}", metric_type="L2",
-                     catalog=catalog)
-    dfx.faiss_add(xb, name, catalog=catalog)
-    idx = catalog.get(name).index
-    set_sq_dot("int8")
-    try:
-        ref = dfx.faiss_search(name, k, xq, {"nprobe": "4"},
-                               catalog=catalog)
-        dfx.set_kernel_mode("pallas")
-        from duckdb_faiss_ext_tpu.ops.pallas_ivf import choose_lmax
-
-        assert idx._pallas_plan() is not None
-        assert choose_lmax(int(idx._counts().max())) > 512  # multi-tile
-        got = dfx.faiss_search(name, k, xq, {"nprobe": "4"},
-                               catalog=catalog)
-    finally:
-        dfx.set_kernel_mode("auto")
-        set_sq_dot("auto")
-    agree = (ref["label"] == got["label"]).mean()
-    assert agree > 0.99, agree
-    same = ref["label"] == got["label"]
-    np.testing.assert_allclose(got["distance"][same],
-                               ref["distance"][same], rtol=2e-5, atol=2e-5)
-
-
 def test_k1000_result_width(catalog):
     """k=1000 through the SQ pairs/spill serving path (the TREC
     conformance width): k_eff clamps, the >128-k spill routing, and the
     query-blocked wide rerank must produce exactly the brute-force
-    decoded ranking (VERDICT r4 ask #5 regression)."""
+    decoded ranking."""
     import duckdb_faiss_ext_tpu as dfx
     from duckdb_faiss_ext_tpu.ops.sq import sq_decode
 

@@ -96,9 +96,7 @@ def test_shard_entry_flat(catalog):
 
 def test_sharded_ivf_search_matches_single_device():
     import jax.numpy as jnp
-    from duckdb_faiss_ext_tpu.ops.pallas_ivf import pallas_ivf_search
     from duckdb_faiss_ext_tpu.parallel.sharded import sharded_ivf_search_fn
-    from duckdb_faiss_ext_tpu.ops.flat_search import finalize_scores
 
     mesh = make_mesh(8, batch_axis=2)   # 4 list shards × 2 query shards
     d, nlist, lmax, nq, k, nprobe = 16, 16, 128, 8, 5, 6
@@ -115,16 +113,19 @@ def test_sharded_ivf_search_matches_single_device():
     centroids = rng.standard_normal((nlist, d)).astype(np.float32)
     xq = rng.standard_normal((nq, d)).astype(np.float32)
 
-    # Single-device oracle: pallas interpret path (same candidate set).
-    from duckdb_faiss_ext_tpu.models.ivf import _coarse_topk
-    probe = _coarse_topk(jnp.asarray(xq), jnp.asarray(centroids),
-                         jnp.float32(0.0), nprobe=nprobe, metric="L2",
-                         precision=jax.lax.Precision.HIGHEST)
-    ref_s, ref_p = pallas_ivf_search(
-        jnp.asarray(xb_lists), jnp.asarray(counts), jnp.asarray(row_pos),
-        probe, jnp.asarray(xq), None, k=k, nprobe=nprobe, metric="L2",
-        interpret=True)
-    ref_d, ref_p = finalize_scores(ref_s, ref_p, "L2")
+    # Plain numpy oracle: float64 scan of every member of the nprobe
+    # nearest lists.
+    q64 = xq.astype(np.float64)
+    cd = ((q64[:, None, :] - centroids[None].astype(np.float64)) ** 2).sum(-1)
+    probes = np.argsort(cd, axis=1, kind="stable")[:, :nprobe]
+    ref_d = np.zeros((nq, k))
+    ref_p = np.zeros((nq, k), np.int64)
+    for q in range(nq):
+        rows = np.concatenate([xb_lists[l, :counts[l]] for l in probes[q]])
+        pos = np.concatenate([row_pos[l, :counts[l]] for l in probes[q]])
+        dist = ((rows.astype(np.float64) - q64[q]) ** 2).sum(-1)
+        o = np.argsort(dist, kind="stable")[:k]
+        ref_d[q], ref_p[q] = dist[o], pos[o]
 
     fn = sharded_ivf_search_fn(mesh, k=k, nprobe=nprobe, metric="L2",
                                precision=jax.lax.Precision.HIGHEST)

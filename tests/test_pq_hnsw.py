@@ -174,22 +174,6 @@ def test_idmap2_reconstruct(catalog):
     np.testing.assert_allclose(rec, xb[5], rtol=1e-6)
 
 
-def test_pq_decode_onehot_matches_gather():
-    """The TPU one-hot matmul decode is exact vs the gather decode (the
-    one-hot row selects exactly one codebook entry)."""
-    from duckdb_faiss_ext_tpu.ops.pq import pq_decode, pq_decode_onehot
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(5)
-    m, ksub, dsub, c = 8, 256, 4, 1000
-    codebooks = jnp.asarray(
-        rng.standard_normal((m, ksub, dsub)).astype(np.float32))
-    codes = jnp.asarray(rng.integers(0, ksub, (c, m)).astype(np.uint8))
-    ref = np.asarray(pq_decode(codes, codebooks))
-    got = np.asarray(pq_decode_onehot(codes, codebooks))
-    np.testing.assert_array_equal(ref, got)
-
-
 def test_hnsw_ivf_acceleration(catalog):
     """With accel=ivf, at scale HNSW lowers to an internal IVF partition
     (efSearch→nprobe); small corpora and {'exact': 'true'} keep the exact
@@ -284,27 +268,9 @@ def test_hnsw_accel_save_load(catalog, tmp_path):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_pq_decode_onehot_chunked_exact():
-    """Regression (code review): the blocked one-hot decode (rows beyond
-    one chunk) stays exact vs the gather decode."""
-    from duckdb_faiss_ext_tpu.ops.pq import (_ONEHOT_CHUNK, pq_decode,
-                                             pq_decode_onehot)
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(6)
-    m, ksub, dsub = 2, 16, 4
-    c = _ONEHOT_CHUNK + 1000   # forces the lax.map blocking path
-    codebooks = jnp.asarray(
-        rng.standard_normal((m, ksub, dsub)).astype(np.float32))
-    codes = jnp.asarray(rng.integers(0, ksub, (c, m)).astype(np.uint8))
-    ref = np.asarray(pq_decode(codes, codebooks))
-    got = np.asarray(pq_decode_onehot(codes, codebooks))
-    np.testing.assert_array_equal(ref, got)
-
-
 def test_nsg_surface(catalog):
     """NSG factory strings (NSG / NSG64 / NSG64,SQ8) execute with the same
-    TPU lowering as HNSW; search_L is the pool knob (faiss IndexNSG)."""
+    device lowering as HNSW; search_L is the pool knob (faiss IndexNSG)."""
     d, n = 8, 400
     xb = _clustered(n, d)
     xq = _clustered(4, d)

@@ -257,10 +257,10 @@ def test_rerank_fp32_exact_in_fast_mode(catalog):
 
 
 def test_ivf_fast_mode_inchunk_rerank_noharm(catalog):
-    """Fast-mode IVF gather scan widens its bf16 top-k and exact-rescores
-    in-chunk (HIGHEST).  On CPU both precisions are fp32, so this checks
-    the rerank branch executes without changing results vs parity mode;
-    the recall lift is a TPU measurement."""
+    """Fast-mode IVF gather scan widens its reduced-precision top-k and
+    exact-rescores in-chunk (HIGHEST).  On CPU both precisions are fp32,
+    so this checks the rerank branch executes without changing results vs
+    parity mode; the recall lift needs the GPU's TF32."""
     import duckdb_faiss_ext_tpu as dfx
 
     rng = np.random.default_rng(5)
@@ -271,8 +271,6 @@ def test_ivf_fast_mode_inchunk_rerank_noharm(catalog):
     dfx.faiss_create("ivr", 32, "IVF32,Flat", metric_type="L2",
                      catalog=catalog)
     dfx.faiss_add(xb, "ivr", catalog=catalog)
-    idx = catalog.get("ivr").index
-    idx._use_pallas_scan = lambda: False        # force the gather scan
     ref = dfx.faiss_search("ivr", 10, xq, {"nprobe": "32"}, catalog=catalog)
     dfx.set_precision("fast")
     try:
@@ -285,10 +283,11 @@ def test_ivf_fast_mode_inchunk_rerank_noharm(catalog):
 
 
 def test_flat_rerank_param(catalog):
-    """{"rerank": "true"} on Flat fast mode: widened bf16 scan + HIGHEST
-    re-score of the candidates — results match parity mode (trivially on
-    CPU; the lift is a TPU measurement), through both the plain and the
-    batched serving paths, with selectors honoured."""
+    """Flat fast mode: widened reduced-precision scan + HIGHEST re-score
+    of the candidates (always on; a legacy {"rerank": "true"} param is
+    accepted) — results match parity mode (trivially on CPU; the lift
+    needs the GPU's TF32), through both the plain and the batched serving
+    paths, with selectors honoured."""
     import duckdb_faiss_ext_tpu as dfx
     from duckdb_faiss_ext_tpu.ops.selectors import BitmapSelector
 

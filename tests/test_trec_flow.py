@@ -1,4 +1,4 @@
-"""End-to-end TREC accuracy-conformance flow at CI scale (VERDICT #8).
+"""End-to-end TREC accuracy-conformance flow at CI scale.
 
 Drives the reference's accuracy pipeline shape (Makefile:73-99,
 go/cmd/create_trec/main.go:32-48) on the frozen synthetic marco-mini

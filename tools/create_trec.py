@@ -30,7 +30,7 @@ def main(argv=None) -> int:
                     help="text file, one query id per line")
     ap.add_argument("--output", required=True)
     ap.add_argument("--k", type=int, default=1000)
-    ap.add_argument("--run-name", default="dfx-tpu")
+    ap.add_argument("--run-name", default="dfx")
     ap.add_argument("--params", default=None, help="e.g. nprobe=15")
     args = ap.parse_args(argv)
 

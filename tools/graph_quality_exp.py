@@ -1,5 +1,5 @@
 """Graph build/walk quality ablation (CPU) — localizes the recall loss that
-caps the HNSW analogue (VERDICT #2): build quality vs walk iterations vs
+caps the HNSW analogue: build quality vs walk iterations vs
 seeding, on uniform and clustered corpora.
 
 Usage: python tools/graph_quality_exp.py [n] [d] [deg]
@@ -17,7 +17,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from duckdb_faiss_ext_tpu.ops.graph import (  # noqa: E402
     augment_graph, build_knn_graph, default_iters, graph_search)

@@ -1,20 +1,21 @@
-"""Sharded-search scaling measurement on a virtual CPU mesh (VERDICT #6).
+"""Sharded-search scaling on a virtual CPU mesh (CPU only).
 
-Real multi-chip hardware is unreachable from this environment, so this
-measures the *sharded code path's* strong scaling on virtual CPU devices
-with a fair core budget: each shard count S runs in its own process pinned
-to S cores (``taskset``) with S virtual XLA host devices — one core per
-device, like one chip per shard.  The interesting quantities are
+Measures the *sharded code path's* strong scaling on virtual CPU devices
+(it never touches an accelerator; the four-GPU check of the same path is
+``chip_smoke.py --four``) with a fair core budget: each shard count S runs
+in its own process pinned to S cores (``taskset``) with S virtual XLA host
+devices — one core per device, like one card per shard.  The interesting
+quantities are
 
   * wall-clock per batch vs S (strong scaling over a fixed corpus),
   * efficiency  t(1) / (S * t(S)),
   * merge overhead: sharded time vs the same device scanning only its
     N/S-row slice locally (no all_gather / global top-k) — the gap is the
-    collective + k-of-kS merge cost the BASELINE.md roofline models.
+    collective + k-of-kS merge cost.
 
-Caveats recorded with the numbers: XLA CPU matmul throughput per core is
-not MXU-like, and S=8 oversubscribes the 4-core host (expect flat or worse
-— reported for completeness, not efficiency).
+Caveats: XLA CPU matmul throughput per core says nothing of a GPU's, and S
+beyond the host's cores oversubscribes it (reported for completeness, not
+efficiency).
 
 Usage:  python tools/sharded_scaling.py [--n 524288] [--d 96] [--b 128]
 """
@@ -35,7 +36,7 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.environ["DFX_REPO"])
 from duckdb_faiss_ext_tpu.parallel.sharded import (
     make_mesh, sharded_flat_search_fn, sharded_ivf_search_fn, choose_chunk)
 from duckdb_faiss_ext_tpu.ops.flat_search import _flat_search
@@ -117,6 +118,8 @@ def main() -> None:
         env = dict(os.environ)
         env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={s}"
         env.pop("PYTHONPATH", None)
+        env["DFX_REPO"] = os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))
         out = subprocess.run(
             ["taskset", "-c", cores, sys.executable, "-c", CHILD,
              str(s), str(args.n), str(args.d), str(args.b)],

@@ -1,5 +1,5 @@
 """Measured negative result: residual/OPQ encoding for IVF,SQ* on the
-synthetic marco-like corpus (VERDICT round-2 #4's "try OPQ->SQ4" lead).
+synthetic marco-like corpus (the "try OPQ->SQ4" lead).
 
 faiss's IndexIVFScalarQuantizer defaults by_residual=true, and OPQ
 rotation is the classic fix for low-bit SQ on real embeddings.  Neither
